@@ -1,0 +1,27 @@
+"""deepseek-coder-33b [dense] — llama-arch.
+
+62L d_model=7168 56H (GQA kv=8) d_ff=19200 vocab=32256
+[arXiv:2401.14196; hf]
+"""
+
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-coder-33b",
+    family="dense",
+    n_layers=62,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    d_ff=19200,
+    vocab=32256,
+    remat="full",
+    opt_state_dtype="bfloat16",
+)
+
+
+def reduced() -> ModelConfig:
+    return CONFIG.replace(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=160,
+        vocab=256, remat="none", dtype="float32", opt_state_dtype="float32",
+    )

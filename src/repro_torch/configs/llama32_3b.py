@@ -1,0 +1,27 @@
+"""llama3.2-3b [dense] — small llama3.
+
+28L d_model=3072 24H (GQA kv=8) d_ff=8192 vocab=128256
+[hf:meta-llama/Llama-3.2-1B; unverified]
+"""
+
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-3b",
+    family="dense",
+    n_layers=28,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab=128256,
+    rope_theta=500_000.0,
+    remat="full",
+)
+
+
+def reduced() -> ModelConfig:
+    return CONFIG.replace(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab=256, remat="none", dtype="float32",
+    )

@@ -10,6 +10,10 @@ dtype maps one to one.
 ``dtype_name`` is the one spelling of a dtype the port keys on (plan
 cache, dataset checks); ``as_dtype`` is what a ``Dataset`` records: numpy's
 dtype where numpy has one, else the torch dtype.
+
+``params_from_reference`` loads the JAX package's parameter tree (as host
+arrays) into the port's model of the same config, so both packages compute
+the same function in the tests.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 
 __all__ = ["dtype_name", "as_dtype", "host_dtype", "torch_dtype",
            "tensor_from_numpy", "numpy_from_tensor", "host_copy",
-           "file_from_numpy"]
+           "file_from_numpy", "params_from_reference"]
 
 _BF16 = "bfloat16"
 
@@ -99,3 +103,46 @@ def file_from_numpy(arrays: Mapping[str, Any], *, device: Any,
         ds = f.create_dataset(path, data=tensor_from_numpy(a, device), copy=False)
         ds.ownership = owners.get(path)
     return f
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = ""):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _flatten(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def params_from_reference(cfg: Any, tree: Mapping[str, Any], device: Any = None):
+    """The port's model of ``cfg`` on ``device`` holding the reference's
+    parameters ``tree`` (nested dicts of host arrays, as
+    ``jax.tree.map(np.asarray, get_family(cfg).init(key, cfg))`` gives).
+
+    The reference stacks its layers along a leading axis; slice i of
+    ``layers/<path>`` becomes parameter ``layers.<i>.<path>``.  Layouts are
+    the same in both packages, so every parameter is a copy; bfloat16
+    crosses through its 16-bit view.  Raises on a missing or extra name, or
+    on a shape or dtype that differs."""
+    from .models.registry import get_family
+
+    model = get_family(cfg).model(cfg, device)
+    arrays: Dict[str, Any] = {}
+    for name, a in _flatten(tree):
+        if name.startswith("layers."):
+            for i in range(np.shape(a)[0]):
+                arrays[f"layers.{i}.{name[len('layers.'):]}"] = a[i]
+        else:
+            arrays[name] = a
+    params = dict(model.named_parameters())
+    if set(arrays) != set(params):
+        raise KeyError(f"parameter names differ: missing "
+                       f"{sorted(set(params) - set(arrays))}, unexpected "
+                       f"{sorted(set(arrays) - set(params))}")
+    with torch.no_grad():
+        for name, p in params.items():
+            t = tensor_from_numpy(arrays[name], p.device)
+            if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
+                raise ValueError(f"{name}: reference {tuple(t.shape)} "
+                                 f"{t.dtype}, port {tuple(p.shape)} {p.dtype}")
+            p.copy_(t)
+    return model

@@ -2,105 +2,40 @@
 
 ``csrc/pack.cu`` holds the two kernels that replace the Pallas
 ``pack_blocks`` / ``pack_cols`` of the JAX package (see the source's header
-for what they compute, their bound and their design).  This module builds
-the source with ``nvcc`` for ``sm_90a`` at first use into
+for what they compute, their bound and their design).  ``kernels.build``
+compiles the source with ``nvcc`` for ``sm_90a`` at first use into
 ``build/repro_torch/libpack-<hash>.so`` under the checkout (the hash covers
-the source and the ``nvcc`` flags, so an edit to either rebuilds), loads it
-with ``ctypes`` and launches it on PyTorch's current stream.
+the source and the ``nvcc`` flags, so an edit to either rebuilds); this
+module loads it with ``ctypes`` and launches it on PyTorch's current stream.
 
 ``check_args`` validates what the kernels cannot: a 2-D C-contiguous
 source and tile offsets inside the source, checked on the host before they
 are copied to the device (a CUDA load past the buffer is not clamped the
 way a TPU DMA is).  ``kernels.ops`` calls it and dispatches on
 ``tensor.is_cuda``; the launchers here count every launch in
-``launch_counts()`` so a run can show that its reshards went through the
-kernels.
+``build.launch_counts()`` so a run can show that its reshards went through
+the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Any, Dict
+from typing import Any
 
 import numpy as np
 import torch
 
-from ..analysis.lockcheck import make_lock
+from . import build as _build
 
-__all__ = ["check_args", "pack_blocks", "pack_cols", "build", "library_path",
-           "launch_counts", "reset_launch_counts"]
-
-_SRC = Path(__file__).resolve().parent / "csrc" / "pack.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC"]
+__all__ = ["check_args", "pack_blocks", "pack_cols"]
 
 _lib: Any = None
-_build_lock = make_lock("leaf:pack_build")
-_count_lock = make_lock("leaf:pack_launches")
-_launches: Dict[str, int] = {"pack_blocks": 0, "pack_cols": 0}
-
-
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last reset, by wrapper name."""
-    with _count_lock:
-        return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    with _count_lock:
-        for k in _launches:
-            _launches[k] = 0
-
-
-def _count(name: str) -> None:
-    with _count_lock:
-        _launches[name] += 1
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the pack kernels "
-                       "are built from source at first use")
-
-
-def library_path() -> Path:
-    """Where the build of the current source and flags lives."""
-    key = hashlib.sha256(_SRC.read_bytes())
-    key.update("\0".join(_NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"libpack-{key.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile ``csrc/pack.cu`` into ``library_path()`` unless that library
-    exists.  Raises on failure."""
-    with _build_lock:
-        lib = library_path()
-        if lib.exists():
-            return lib
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
-        return lib
 
 
 def _library() -> Any:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _build.load("pack")
         for fn in (lib.wlk_pack_rows, lib.wlk_pack_cols):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_longlong, ctypes.c_longlong,
@@ -161,7 +96,7 @@ def _launch(name: str, fn_name: str, src: torch.Tensor, offs: np.ndarray,
                  src.element_size(), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    _count(name)
+    _build.count(name)
     return out
 
 

@@ -1,7 +1,9 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA pack kernels against
-their plain versions, the wrappers' checks on CUDA tensors, and a small
-4->2 workflow on ``cuda:0``.  They import torch and the port only (no JAX),
-so the card's machine runs them with
+"""Tests of the port that need an NVIDIA GPU: the CUDA pack kernels (K1,
+K2), flash attention (K3) and the SSD intra-chunk step (K4) against their
+plain versions, the wrappers' checks on CUDA tensors, a small 4->2 workflow
+and two-layer serving engines on ``cuda:0`` that count their launches.
+They import torch and the port only (no JAX), so the card's machine runs
+them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -18,15 +20,19 @@ from repro_torch.core import Wilkins, h5  # noqa: E402
 from repro_torch.core.datamodel import (BlockOwnership,  # noqa: E402
                                         reset_transport_stats, transport_stats)
 from repro_torch.core.redistribute import even_blocks  # noqa: E402
-from repro_torch.kernels import ops, pack, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+PACK = ("pack_blocks", "pack_cols")
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the pack kernels run only on the card")
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in float32
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -45,10 +51,10 @@ def test_kernel_matches_plain_version(cuda, dtype, dim, shape, tile, t):
     fn, plain = ((ops.pack_blocks, ref.pack_blocks_ref) if dim == 0
                  else (ops.pack_cols, ref.pack_cols_ref))
     name = "pack_blocks" if dim == 0 else "pack_cols"
-    before = pack.launch_counts()[name]
+    before = build.launch_counts([name])[name]
     got = fn(src.to(cuda), offs.numpy(), tile)
     torch.cuda.synchronize()
-    assert pack.launch_counts()[name] == before + 1
+    assert build.launch_counts([name])[name] == before + 1
     assert got.is_cuda
     assert torch.equal(got.cpu(), plain(src, offs, tile))
 
@@ -126,9 +132,146 @@ def test_small_4to2_workflow_on_the_card(cuda):
                     bad.append((comm.task, r))
 
     reset_transport_stats()
-    pack.reset_launch_counts()
+    build.reset_launch_counts(PACK)
     Wilkins(cfg, {"p": producer, "rows": consumer, "cols": consumer}).run(timeout=120)
     assert bad == []
     s = transport_stats().snapshot()
     assert s["reshard_pack"] == 2 * 2 * steps * 2 and s["reshard_numpy"] == 0
-    assert pack.launch_counts() == {"pack_blocks": 16, "pack_cols": 16}
+    assert build.launch_counts(PACK) == {"pack_blocks": 16, "pack_cols": 16}
+
+
+# K3 cases: (B, S, H, KV, D, dtype, causal, window)
+FA_CASES = [
+    (1, 1000, 4, 4, 64, "float32", False, 0),     # MHA, non-causal
+    (1, 1000, 6, 2, 128, "float32", True, 0),     # GQA rep 3 (Llama-3.2)
+    (2, 1000, 8, 1, 80, "float32", True, 256),    # MQA, causal + window
+    (1, 1000, 24, 8, 128, "bfloat16", True, 0),
+    (1, 1000, 6, 2, 80, "bfloat16", True, 100),
+    (1, 333, 4, 1, 64, "bfloat16", False, 0),
+    (1, 77, 2, 2, 16, "float32", True, 0),
+    (1, 130, 4, 2, 32, "float32", True, 48),
+    (1, 2048, 24, 8, 128, "float32", True, 0),    # the serving path's shape
+    (1, 2048, 24, 8, 128, "bfloat16", True, 0),
+]
+# Both sides compute in float32 and round to bf16 once, so a bf16 output
+# may differ by one bf16 ulp: at most 2^-7 of its magnitude (rtol), plus an
+# absolute floor for outputs near zero.
+FA_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (4e-3, 8e-3)}
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,dtype,causal,window", FA_CASES)
+def test_flash_attention_matches_plain_version(cuda, b, s, h, kv, d, dtype,
+                                               causal, window):
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, s, h, d), generator=g, device=cuda).to(dt)
+    k = torch.randn((b, s, kv, d), generator=g, device=cuda).to(dt)
+    v = torch.randn((b, s, kv, d), generator=g, device=cuda).to(dt)
+    before = build.launch_counts(["flash_attention"])["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert build.launch_counts(["flash_attention"])["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dt and got.shape == q.shape
+    atol, rtol = FA_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+# K4 cases: (B, S, H, P, G, N, chunk)
+SSD_CASES = [
+    (1, 2048, 80, 64, 1, 128, 256),   # the serving path's shape
+    (2, 1000, 8, 64, 2, 128, 256),    # G = 2, ragged
+    (1, 300, 4, 24, 1, 20, 128),      # P and N off the 16 grid, ragged
+    (1, 100, 4, 8, 2, 8, 32),
+]
+
+
+def _ssd_inputs(cuda, b, s, h, p, g, n, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gen, device=cuda)
+    dA = -torch.randn((b, s, h), generator=gen, device=cuda).abs() * 0.1
+    Bm = torch.randn((b, s, g, n), generator=gen, device=cuda)
+    Cm = torch.randn((b, s, g, n), generator=gen, device=cuda)
+    s0 = torch.randn((b, h, n, p), generator=gen, device=cuda)
+    return x, dA, Bm, Cm, s0
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
+def test_ssd_intra_chunk_matches_plain_version(cuda, b, s, h, p, g, n, chunk):
+    q = min(chunk, s)
+    nc = s // q
+    x, dA, Bm, Cm, _ = _ssd_inputs(cuda, b, nc * q, h, p, g, n, s)
+    args = (x.reshape(b, nc, q, h, p), dA.reshape(b, nc, q, h),
+            Bm.reshape(b, nc, q, g, n), Cm.reshape(b, nc, q, g, n))
+    before = build.launch_counts(["ssd_intra_chunk"])["ssd_intra_chunk"]
+    y, st = ops.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert build.launch_counts(["ssd_intra_chunk"])["ssd_intra_chunk"] == before + 1
+    y_ref, st_ref = ref.ssd_intra_chunk_ref(*args)
+    torch.testing.assert_close(y, y_ref, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(st, st_ref, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "state"])
+def test_ssd_chunked_kernel_matches_plain_scan(cuda, b, s, h, p, g, n, chunk,
+                                               with_state):
+    from repro_torch.models.ssm import ssd_chunked
+
+    x, dA, Bm, Cm, s0 = _ssd_inputs(cuda, b, s, h, p, g, n, s + 1)
+    s0 = s0 if with_state else None
+    y, f = ops.ssd_chunked_kernel(x, dA, Bm, Cm, chunk=chunk, initial_state=s0)
+    y_ref, f_ref = ssd_chunked(x, dA, Bm, Cm, chunk=chunk, initial_state=s0)
+    torch.testing.assert_close(y, y_ref, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(f, f_ref, atol=2e-4, rtol=2e-4)
+
+
+def test_model_kernel_wrappers_check_cuda_inputs(cuda):
+    q = torch.zeros((1, 8, 2, 16), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.flash_attention(q, q.detach(), q.detach())
+    with pytest.raises(ValueError, match="multiple of 16"):
+        z = torch.zeros((1, 8, 2, 24), device=cuda)
+        ops.flash_attention(z, z, z)
+    x = torch.zeros((1, 1, 8, 2, 130), device=cuda)
+    with pytest.raises(ValueError, match=r"in \[1, 128\]"):
+        ops.ssd_intra_chunk(x, torch.zeros((1, 1, 8, 2), device=cuda),
+                            torch.zeros((1, 1, 8, 1, 8), device=cuda),
+                            torch.zeros((1, 1, 8, 1, 8), device=cuda))
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-2.7b"])
+def test_two_layer_engine_on_the_card_counts_its_launches(cuda, arch):
+    """Head dim 64, bf16, use_flash: every prefill launches the kernel once
+    per layer, decode never; the greedy tokens equal the plain path's."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Engine, Request, ServeConfig
+
+    cfg = get_config(arch).replace(n_layers=2, vocab=1024)
+    if arch == "llama3.2-3b":
+        cfg = cfg.replace(d_model=512, n_heads=8, n_kv_heads=2, d_ff=1024)
+        name = "flash_attention"
+    else:
+        cfg = cfg.replace(d_model=256)   # d_inner 512: 8 heads of P = 64
+        name = "ssd_intra_chunk"
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (300, 600, 7)]
+    outs = {}
+    for use_flash in (True, False):
+        eng = Engine(cfg.replace(use_flash=use_flash),
+                     ServeConfig(max_slots=2, max_len=1024), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(1))
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=4)
+                for i, p in enumerate(prompts)]
+        build.reset_launch_counts([name])
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        launches = build.launch_counts([name])[name]
+        assert launches == (len(prompts) * cfg.n_layers if use_flash else 0)
+        assert all(r.done and len(r.out_tokens) == 4 for r in reqs)
+        outs[use_flash] = [r.out_tokens for r in reqs]
+    agree = sum(a == b for a, b in zip(outs[True], outs[False]))
+    assert agree >= 2, outs

@@ -41,10 +41,21 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
         "repro_torch.obs.recorder", "repro_torch.obs.critical",
         "repro_torch.obs.export",
         "repro_torch.kernels.pack", "repro_torch.kernels.ops",
-        "repro_torch.kernels.ref",
+        "repro_torch.kernels.ref", "repro_torch.kernels.build",
+        "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
+        "repro_torch.models.config", "repro_torch.models.layers",
+        "repro_torch.models.transformer", "repro_torch.models.ssm",
+        "repro_torch.models.registry",
+        "repro_torch.serve", "repro_torch.serve.engine",
+        "repro_torch.launch", "repro_torch.launch.serve",
+        "repro_torch.configs",
     } | {f"repro_torch.core.{m}" for m in (
         "scheduler", "datamodel", "redistribute", "comm", "recovery",
-        "channel", "vol", "h5", "actions", "graph", "driver")}
+        "channel", "vol", "h5", "actions", "graph", "driver")} | {
+        f"repro_torch.configs.{m}" for m in (
+            "arctic_480b", "deepseek_coder_33b", "internvl2_76b", "llama32_3b",
+            "mamba2_2_7b", "phi35_moe", "phi3_mini", "tinyllama_1_1b",
+            "whisper_base", "zamba2_2_7b")}
     assert expected <= set(res["modules"])
 
 

@@ -16,7 +16,9 @@ import jax.numpy as jnp  # noqa: E402
 from hypcompat import given, settings, st  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.convert import numpy_from_tensor, tensor_from_numpy  # noqa: E402
-from repro_torch.kernels import ops, pack, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+
+PACK = ("pack_blocks", "pack_cols")
 
 CPU = torch.device("cpu")
 
@@ -130,33 +132,34 @@ def test_wrapper_takes_host_offsets_only():
 def test_build_is_keyed_on_source_and_flags(monkeypatch):
     """A change of the nvcc flags (or of the source) names another library,
     so a stale build is never reused."""
-    first = pack.library_path()
+    first = build.library_path("pack")
     assert first.parent.name == "repro_torch" and first.suffix == ".so"
-    assert pack.library_path() == first
-    monkeypatch.setattr(pack, "_NVCC_FLAGS", [*pack._NVCC_FLAGS, "-lineinfo"])
-    assert pack.library_path() != first
+    assert first.name.startswith("libpack-")
+    assert build.library_path("pack") == first
+    assert build.library_path("pack", [*build.NVCC_FLAGS, "-lineinfo"]) != first
+    assert build.library_path("flash_attention") != first
 
 
 def test_cpu_path_is_the_plain_version_and_counts_no_launch():
     src = torch.arange(64.0).reshape(16, 4)
     offs = np.asarray([1, 0], np.int32)
-    pack.reset_launch_counts()
+    build.reset_launch_counts(PACK)
     got = ops.pack_blocks(src, offs, tile_rows=8)
     assert torch.equal(got, ref.pack_blocks_ref(src, torch.from_numpy(offs),
                                                 tile_rows=8))
     assert torch.equal(got, torch.cat([src[8:], src[:8]]))
-    assert pack.launch_counts() == {"pack_blocks": 0, "pack_cols": 0}
+    assert build.launch_counts(PACK) == {"pack_blocks": 0, "pack_cols": 0}
 
 
 def test_launch_counter_loses_no_update_under_threads():
     """Task threads launch concurrently; the per-wrapper count is a locked
     read-modify-write, so no increment may be lost."""
-    pack.reset_launch_counts()
+    build.reset_launch_counts(PACK)
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         threads = [threading.Thread(
-            target=lambda: [pack._count("pack_cols") for _ in range(2000)])
+            target=lambda: [build.count("pack_cols") for _ in range(2000)])
             for _ in range(16)]
         for t in threads:
             t.start()
@@ -165,5 +168,5 @@ def test_launch_counter_loses_no_update_under_threads():
         assert not any(t.is_alive() for t in threads)
     finally:
         sys.setswitchinterval(old)
-    assert pack.launch_counts() == {"pack_blocks": 0, "pack_cols": 32000}
-    pack.reset_launch_counts()
+    assert build.launch_counts(PACK) == {"pack_blocks": 0, "pack_cols": 32000}
+    build.reset_launch_counts(PACK)

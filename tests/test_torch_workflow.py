@@ -21,7 +21,9 @@ from repro.core import redistribute as jred  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import datamodel as tdm  # noqa: E402
 from repro_torch.core import redistribute as tred  # noqa: E402
-from repro_torch.kernels import pack  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+
+PACK = ("pack_blocks", "pack_cols")
 
 CPU = torch.device("cpu")
 SEED = 2024
@@ -106,7 +108,7 @@ def _hit_rate(snap):
 
 @pytest.mark.parametrize("axis", [0, 1])
 def test_4to2_redistributing_workflow_matches_jax(axis):
-    pack.reset_launch_counts()
+    build.reset_launch_counts(PACK)
     trep, tgot, tstats, tpc = _run(tcore, tdm, tred, True, axis)
     jrep, jgot, jstats, jpc = _run(jcore, jdm, jred, False, axis)
     assert len(tgot) == 2 * 2 * STEPS   # each consumer: 2 producers x steps
@@ -138,7 +140,7 @@ def test_4to2_redistributing_workflow_matches_jax(axis):
     assert tpc["size"] == jpc["size"]
     assert _hit_rate(tpc) == _hit_rate(jpc) > 0.8
     # on the CPU the wrappers ran their plain versions: no kernel launched
-    assert pack.launch_counts() == {"pack_blocks": 0, "pack_cols": 0}
+    assert build.launch_counts(PACK) == {"pack_blocks": 0, "pack_cols": 0}
 
 
 def _quickstart_workflow():
