@@ -20,11 +20,13 @@ JSON line and any failure exiting non-zero:
    on the card.  The kernels' launch counts are read around this run;
 4. times -- the workflow's wall time per timestep;
 5. kernels_model -- flash attention (K3) and the SSD intra-chunk step (K4)
-   against their plain PyTorch versions on the card: K3 in float32 and
-   bfloat16, MHA / GQA / MQA, head dims 64, 80 and 128, causal, windowed and
-   non-causal, ragged S = 1000 and the serving shape in both dtypes; K4 with
-   1 and 2 groups, ragged S and the serving shape; TF32 off, so the plain
-   versions are float32;
+   against their plain PyTorch versions on the card: K3 in float32 (its
+   CUDA-core kernel) and bfloat16 (its tensor-core kernel), MHA / GQA / MQA,
+   head dims 16 to 128, causal, windowed and non-causal, S not a multiple of
+   the 64-row tile, q/k/v as strided slices of one fused tensor (read in
+   place), and the serving shape in both dtypes; K4 with 1, 2 and 4 groups,
+   head counts that leave a short head subset, P above 64, ragged S and the
+   serving shape; TF32 off, so the plain versions are float32;
 6. serve -- ``llama3.2-3b`` and then ``mamba2-2.7b`` at full width (random
    weights from ``--seed``, bf16) through ``repro_torch.serve.Engine`` on
    ``cuda:0`` with ``use_flash``: 8 greedy requests of 16 new tokens, prompts
@@ -39,16 +41,20 @@ JSON line and any failure exiting non-zero:
    would hold nothing).  Launch counts are set to 0 just before each model's
    requests and read just after; prefill and decode are timed alone, and
    with ``--profile`` decode's device time is taken with ``torch.profiler``;
-7. the per-kernel line -- K1 and K2 at the shapes of phase 3, K3 and K4 at
-   the serving shape (S = 2048): CUDA events with a cold L2, beside the bound
-   (the larger of bytes over the memory rate and operations over the peak
-   rate of their type), the plain version and one PyTorch call computing the
-   same function where there is one.
+7. the per-kernel line -- K1 and K2 at the shapes of phase 3, K3 (bf16, and
+   float32 as a second entry) and K4 at the serving shape (S = 2048): CUDA
+   events with a cold L2, beside the bound (the larger of bytes over the
+   memory rate and operations over the peak rate of their type) and its
+   share of the kernel's time, the plain version and one PyTorch call
+   computing the same function where there is one.  ``launches`` is the
+   count on the path: phase 3 for K1/K2, phase 6's requests for K3 bf16 and
+   K4, phase 6's float32 logits gate for K3 float32.
 
-The second-to-last lines are the per-kernel summary and the card's name and
-power limit; the last line is ``{"ok": true, "device": {...}}``.  Without
-CUDA, or without the repository beside it, the script exits non-zero before
-printing any result.
+The lines before the last are the whole run's wall time (builds included),
+the per-kernel summary and the card's name and power limit; the last line
+is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+repository beside it, the script exits non-zero before printing any
+result.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ STEPS = 8
 N_PROD = 4
 TILE = 8                     # tile extent along the decomposed axis
 REPS = 30                    # timed launches per measurement
+SPIN_CYCLES = 1_000_000      # about half a millisecond of the card's clock
 # peak memory bandwidth (bytes/s), dense bf16 tensor-core and float32 CUDA-core
 # rates (FLOP/s), by device name (NVIDIA data sheets, at the full power limit)
 PEAKS = (("H100 80GB HBM3", 3.35e12, 989e12, 67e12),
@@ -229,12 +236,15 @@ def workflow(core, dev, seed: int, verify: bool):
 # --------------------------------------------------------------- phase 4
 def time_ms(fn, flush) -> float:
     """Median device time of ``fn`` over REPS launches, L2 flushed before
-    each (the main path finds its slab cold)."""
+    each (the main path finds its slab cold).  A spin kernel keeps the card
+    busy while the host queues the start event and ``fn``'s launches, so a
+    slow host adds no idle time between the events."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(REPS):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -283,14 +293,16 @@ def time_kernels(pack, ops, ref, dev, peak_bw, launches, steps, worst):
         bound = moved / peak_bw * 1e3
         ms = time_ms(kernel, flush)
         out.append({
-            "name": name, "route": "cuda", "source": source(name),
+            "name": name, "dtype": "float32", "route": "cuda",
+            "source": source(name),
             "replaces": REPLACES[name], "launches": launches[name],
             "launches_per_step": launches[name] / steps,
             "max_abs_err": worst,
             "ms": ms,
             "wrapper_ms": time_ms(lambda: wrapper(src, offs_host, tile), flush),
             "plain_ms": time_ms(lambda: plain(src, offs, tile), flush),
-            "bound_ms": bound, "bound_by": "bytes", "bytes": moved,
+            "bound_ms": bound, "bound_by": "bytes", "share_of_bound": bound / ms,
+            "bytes": moved,
             "library_ms": time_ms(library, flush),
             "bandwidth_gbs": moved / ms / 1e6,
         })
@@ -306,9 +318,15 @@ FA_CASES = [  # (B, S, H, KV, D, dtype, causal, window)
     (1, 1000, 24, 8, 128, torch.bfloat16, True, 0),
     (2, 1000, 8, 1, 80, torch.bfloat16, True, 256),
     (1, 1000, 6, 2, 96, torch.bfloat16, True, 100),
+    (1, 1000, 4, 2, 16, torch.bfloat16, True, 0),      # tensor-core kernel at
+    (1, 1000, 4, 2, 64, torch.bfloat16, True, 0),      # D = 16, 64, 96, Sq not
+    (2, 999, 6, 2, 96, torch.bfloat16, False, 0),      # a multiple of 64
     (1, TIME_S, 24, 8, 128, torch.float32, True, 0),   # the serving shape
     (1, TIME_S, 24, 8, 128, torch.bfloat16, True, 0),
 ]
+# bf16 q/k/v as slices of one fused (B, S, H + 2 KV, D) tensor: strided views
+# with unit D stride, which the kernel reads in place: (B, S, H, KV, D, causal)
+FA_FUSED_CASES = [(2, 1000, 24, 8, 128, True)]
 # (atol, rtol).  Both sides compute in float32 and round to bf16 once, so a
 # bf16 output may differ by one bf16 ulp: at most 2^-7 of its magnitude
 # (rtol), plus an absolute floor for outputs near zero.
@@ -317,6 +335,9 @@ SSD_CASES = [  # (B, S, H, P, G, N, chunk)
     (2, 1000, 8, 64, 2, 128, 256),    # G = 2, ragged S
     (1, 1000, 80, 64, 1, 128, 256),   # ragged S
     (1, 300, 4, 24, 1, 20, 128),      # P and N off the 16 grid
+    (1, 1000, 12, 64, 1, 128, 256),   # 12 heads: subsets of 8 and 4
+    (1, 1000, 16, 32, 4, 64, 128),    # G = 4: one short subset per group
+    (1, 600, 6, 80, 2, 32, 256),      # P > 64: subsets of 4 heads
     (1, TIME_S, 80, 64, 1, 128, 256), # the serving shape
 ]
 
@@ -357,12 +378,24 @@ def check_model_kernels(ops, ref, build, dev):
             raise RuntimeError(f"{name} did not count its launch")
         return out
 
+    from repro_torch.kernels import flash_attention as fa
+
     res = {"flash_attention": {"cases": 0, "max_abs_err_f32": 0.0,
                                "max_abs_err_bf16": 0.0, "max_share_of_limit": 0.0,
                                "serving_shape": {}},
            "ssd_intra_chunk": {"cases": 0, "max_abs_err": 0.0}}
-    for i, (b, s, h, kv, d, dt, causal, window) in enumerate(FA_CASES):
-        q, k, v = fa_inputs(dev, b, s, h, kv, d, dt, 100 + i)
+    cases = [(c, False) for c in FA_CASES] + [
+        ((b, s, h, kv, d, torch.bfloat16, causal, 0), True)
+        for b, s, h, kv, d, causal in FA_FUSED_CASES]
+    for i, ((b, s, h, kv, d, dt, causal, window), fused) in enumerate(cases):
+        if fused:
+            g = torch.Generator(device=dev).manual_seed(100 + i)
+            qkv = torch.randn((b, s, h + 2 * kv, d), generator=g, device=dev).to(dt)
+            q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+            if not all(fa._kernel_layout(t) is t for t in (q, k, v)):
+                raise RuntimeError("flash_attention copies fused q/k/v views")
+        else:
+            q, k, v = fa_inputs(dev, b, s, h, kv, d, dt, 100 + i)
         got = launched("flash_attention", lambda: ops.flash_attention(
             q, k, v, causal=causal, window=window))
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -381,8 +414,6 @@ def check_model_kernels(ops, ref, build, dev):
         r["cases"] += 1
         if s == TIME_S:
             r["serving_shape"][str(dt).removeprefix("torch.")] = err
-            if dt == torch.bfloat16:
-                r["max_abs_err"] = err
     for i, (b, s, h, p, g_, n, chunk) in enumerate(SSD_CASES):
         args = ssd_inputs(dev, b, s, h, p, g_, n, chunk, 200 + i)
         y, st = launched("ssd_intra_chunk", lambda: ops.ssd_intra_chunk(*args))
@@ -524,8 +555,10 @@ def serve_model(arch, kernel, build, dev, seed, profile):
         # the same weights in float32, where rounding-order differences stay
         # small through the model's depth
         eng.params.float()
+        before = build.launch_counts([kernel])[kernel]
         logits32 = {uf: last_logits(cfg.replace(use_flash=uf, dtype="float32"),
                                     dtype=torch.float32)[0] for uf in (True, False)}
+        f32_launches = build.launch_counts([kernel])[kernel] - before
     agree = {"flash_vs_plain_rel_l2_f32": rel_l2(logits32[True], logits32[False]),
              "flash_vs_plain_rel_l2_bf16": rel_l2(logits[True], logits[False]),
              "flash_bf16_vs_plain_f32_rel_l2": rel_l2(logits[True], logits32[False]),
@@ -550,7 +583,8 @@ def serve_model(arch, kernel, build, dev, seed, profile):
            "prompt_tokens": int(lens.sum()), "tokens": tokens, "wall_s": wall,
            "tokens_per_s": tokens / wall, "ttft_p50_s": pct(ttfts, .5),
            "ttft_p95_s": pct(ttfts, .95), "launches": launches,
-           **agree, "logits_finite": finite, **timing,
+           **agree, "logits_finite": finite, "float32_gate_launches": f32_launches,
+           **timing,
            "max_memory_allocated": peak_mem}
     del eng, logits, logits32
     gc.collect()
@@ -565,31 +599,38 @@ def time_model_kernels(ref, fa, ssd, dev, rates, launches, errs):
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     out = []
 
+    # K3 in bf16 (tensor cores, the served path) and float32 (CUDA cores)
     b, s, h, kv, d = 1, TIME_S, 24, 8, 128
-    q, k, v = fa_inputs(dev, b, s, h, kv, d, torch.bfloat16, 7)
     flops = 4 * b * h * d * s * (s + 1) / 2
-    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, True, 0), flush)
-    out.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": source("flash_attention"),
-        "replaces": REPLACES["flash_attention"],
-        "launches": launches["flash_attention"],
-        "max_abs_err": errs["flash_attention"]["max_abs_err"],
-        "shape": "q (1, 2048, 24, 128), k/v (1, 2048, 8, 128) bf16, causal",
-        "ms": ms,
-        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True),
-                            flush),
-        "bound_ms": max(flops / bf16_rate, moved / bw) * 1e3,
-        "bound_by": "operations" if flops / bf16_rate > moved / bw else "bytes",
-        "flops": flops, "bytes": moved, "peak_flops": bf16_rate,
-        "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True), flush),
-        "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
-                   "enable_gqa=True) on BHSD views",
-        "tflops": flops / ms / 1e9,
-    })
+    for dt, rate in ((torch.bfloat16, bf16_rate), (torch.float32, f32_rate)):
+        q, k, v = fa_inputs(dev, b, s, h, kv, d, dt, 7)
+        moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        name = str(dt).removeprefix("torch.")
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, True, 0), flush)
+        bound = max(flops / rate, moved / bw) * 1e3
+        out.append({
+            "name": "flash_attention", "dtype": name, "route": "cuda",
+            "source": source("flash_attention"),
+            "replaces": REPLACES["flash_attention"],
+            "launches": launches["flash_attention" if dt == torch.bfloat16
+                                 else "flash_attention:float32"],
+            "max_abs_err": errs["flash_attention"]["serving_shape"][name],
+            "shape": f"q (1, 2048, 24, 128), k/v (1, 2048, 8, 128) {name}, causal",
+            "ms": ms,
+            "plain_ms": time_ms(
+                lambda: ref.flash_attention_ref(q, k, v, causal=True), flush),
+            "bound_ms": bound,
+            "bound_by": "operations" if flops / rate > moved / bw else "bytes",
+            "share_of_bound": bound / ms,
+            "flops": flops, "bytes": moved, "peak_flops": rate,
+            "library_ms": time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True), flush),
+            "library": "torch.nn.functional.scaled_dot_product_attention("
+                       "is_causal=True, enable_gqa=True) on BHSD views",
+            "tflops": flops / ms / 1e9,
+        })
 
     b, h, p, g_, n, chunk = 1, 80, 64, 1, 128, 256
     args = ssd_inputs(dev, b, TIME_S, h, p, g_, n, chunk, 8)
@@ -599,16 +640,19 @@ def time_model_kernels(ref, fa, ssd, dev, rates, launches, errs):
     moved = 4 * (2 * args[0].numel() + args[1].numel() + args[2].numel()
                  + args[3].numel() + b * nc * h * n * p)
     ms = time_ms(lambda: ssd.ssd_intra_chunk(*args), flush)
+    bound = max(flops / f32_rate, moved / bw) * 1e3
     out.append({
-        "name": "ssd_intra_chunk", "route": "cuda", "source": source("ssd_intra_chunk"),
+        "name": "ssd_intra_chunk", "dtype": "float32", "route": "cuda",
+        "source": source("ssd_intra_chunk"),
         "replaces": REPLACES["ssd_intra_chunk"],
         "launches": launches["ssd_intra_chunk"],
         "max_abs_err": errs["ssd_intra_chunk"]["max_abs_err_serving_shape"],
         "shape": "x (1, 8, 256, 80, 64), dA (1, 8, 256, 80), B/C (1, 8, 256, 1, 128) f32",
         "ms": ms,
         "plain_ms": time_ms(lambda: ref.ssd_intra_chunk_ref(*args), flush),
-        "bound_ms": max(flops / f32_rate, moved / bw) * 1e3,
+        "bound_ms": bound,
         "bound_by": "operations" if flops / f32_rate > moved / bw else "bytes",
+        "share_of_bound": bound / ms,
         "flops": flops, "bytes": moved, "peak_flops": f32_rate,
         "library_ms": None,
         "library": "none: no single PyTorch call computes the SSD intra-chunk step",
@@ -623,6 +667,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also take decode's device time with torch.profiler")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -697,12 +742,14 @@ def main() -> int:
         row, served, problems = serve_model(arch, kernel, build, dev, args.seed,
                                             args.profile)
         launches[kernel] = served.get(kernel, 0)
+        launches[f"{kernel}:float32"] = row["float32_gate_launches"]
         emit(row)
         if problems:
             raise RuntimeError("; ".join(problems))
 
     kernels = time_kernels(pack, ops, ref, dev, rates[0], launches, STEPS, worst)
     kernels += time_model_kernels(ref, fa, ssd, dev, rates, launches, errs)
+    emit({"phase": "run", "run_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,8 +3,9 @@
 Every kernel lives in ``csrc/<name>.cu`` behind a plain C interface.
 ``build(name)`` runs ``nvcc`` for ``sm_90a`` on it at first use into
 ``build/repro_torch/lib<name>-<hash>.so`` under the checkout, where the
-hash covers the source and the ``nvcc`` flags, so an edit to either builds
-a new library and a stale one is never reused.  ``build_all`` starts one
+hash covers the source, the shared headers ``csrc/*.cuh`` and the ``nvcc``
+flags, so an edit to any of them builds a new library and a stale one is
+never reused.  ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them.  Nothing is built at
 import, so the CPU tests import every module without ``nvcc``.
 
@@ -74,8 +75,11 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str, flags: Sequence[str] = NVCC_FLAGS) -> Path:
-    """Where the build of ``csrc/<name>.cu`` with ``flags`` lives."""
+    """Where the build of ``csrc/<name>.cu`` with ``flags`` lives: named by
+    a hash of the source, every header ``csrc/*.cuh`` and the flags."""
     key = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + b"\0" + header.read_bytes())
     key.update("\0".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 

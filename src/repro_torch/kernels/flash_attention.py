@@ -5,7 +5,9 @@ of the JAX package (see the source's header for what it computes, its
 bound and its design).  ``kernels.build`` compiles it for ``sm_90a`` at
 first use; ``flash_attention`` here checks a call, allocates the output and
 launches on PyTorch's current stream.  The kernel reads BSHD strides
-directly, so no transpose or padded copy is made.  ``kernels.ops`` holds
+directly, so no transpose or padded copy is made; a bfloat16 tensor whose
+pointer or strides are not whole 16-byte chunks (the tensor-core kernel
+copies 16 bytes at a time) is first made contiguous.  ``kernels.ops`` holds
 the public wrapper that dispatches on the tensor's device.
 """
 
@@ -74,6 +76,18 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: window {window} < 0")
 
 
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the kernel reads it in place: unit stride along D,
+    and for bfloat16 (16-byte copies) a 16-byte-aligned pointer and (B, S,
+    H) strides of whole 16-byte chunks.  Otherwise a new contiguous copy."""
+    ok = t.stride(-1) == 1
+    if t.dtype == torch.bfloat16:
+        size = t.element_size()
+        ok = ok and t.data_ptr() % 16 == 0 and all(
+            s * size % 16 == 0 for s in t.stride()[:3])
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, window: int) -> torch.Tensor:
     """K3 on the card for arguments ``check_args`` accepted: (B, Sq, H, D)
@@ -81,8 +95,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         raise ValueError(f"flash_attention launches on CUDA tensors only, "
                          f"got {q.device}")
-    tensors = [t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v)]
-    q, k, v = tensors
+    q, k, v = (_kernel_layout(t) for t in (q, k, v))
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)

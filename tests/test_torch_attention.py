@@ -90,3 +90,43 @@ def test_no_fallback_off_the_card():
         fa.flash_attention(q, k, v, causal=True, window=0)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.flash_attention(*(t.to("meta") for t in (q, k, v)))
+
+
+@pytest.mark.parametrize("view, in_place", [
+    ("fused", True),         # q/k/v sliced from one (B, S, H + 2 KV, D) tensor
+    ("contiguous", True),
+    ("offset", False),       # pointer 2 bytes off the 16-byte grid
+    ("d_strided", False),    # non-unit stride along D
+])
+def test_kernel_layout_reads_in_place_only_on_16_byte_grids(view, in_place):
+    """The bf16 tensor-core kernel copies 16 bytes at a time: the wrapper
+    hands it a view as it is where the pointer and the (B, S, H) strides
+    are whole 16-byte chunks, and a contiguous copy otherwise."""
+    b, s, h, d = 1, 8, 4, 16
+    if view == "fused":
+        t = torch.zeros((b, s, h + 4, d), dtype=torch.bfloat16)[:, :, :h]
+    elif view == "contiguous":
+        t = torch.zeros((b, s, h, d), dtype=torch.bfloat16)
+    elif view == "offset":
+        t = torch.zeros(b * s * h * d + 1, dtype=torch.bfloat16)[1:].view(b, s, h, d)
+    else:
+        t = torch.zeros((b, s, h, 2 * d), dtype=torch.bfloat16)[..., ::2]
+    got = fa._kernel_layout(t)
+    assert (got is t) == in_place
+    assert torch.equal(got, t) and got.stride(-1) == 1
+    if not in_place:
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+
+
+def test_fused_qkv_views_match_jax():
+    """q, k and v as slices of one fused projection, as a model may hand
+    them, give the JAX package's result."""
+    rng = np.random.default_rng(8)
+    b, s, h, kv, d = 1, 96, 4, 2, 32
+    fused = rng.normal(size=(b, s, h + 2 * kv, d)).astype(np.float32)
+    parts = (fused[:, :, :h], fused[:, :, h:h + kv], fused[:, :, h + kv:])
+    want = jops.flash_attention(*(jnp.asarray(p) for p in parts), causal=True)
+    t = torch.from_numpy(fused)
+    got = ops.flash_attention(t[:, :, :h], t[:, :, h:h + kv], t[:, :, h + kv:],
+                              causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=3e-5)

@@ -152,6 +152,9 @@ FA_CASES = [
     (1, 130, 4, 2, 32, "float32", True, 48),
     (1, 2048, 24, 8, 128, "float32", True, 0),    # the serving path's shape
     (1, 2048, 24, 8, 128, "bfloat16", True, 0),
+    (1, 1000, 4, 2, 16, "bfloat16", True, 0),     # tensor-core kernel, D = 16,
+    (1, 1000, 4, 2, 64, "bfloat16", True, 0),     # 64 and 96, Sq not a
+    (2, 999, 6, 2, 96, "bfloat16", False, 0),     # multiple of 64
 ]
 # Both sides compute in float32 and round to bf16 once, so a bf16 output
 # may differ by one bf16 ulp: at most 2^-7 of its magnitude (rtol), plus an
@@ -177,12 +180,40 @@ def test_flash_attention_matches_plain_version(cuda, b, s, h, kv, d, dtype,
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+def test_flash_attention_reads_fused_views_in_place(cuda):
+    """bf16 q/k/v sliced from one fused (B, S, H + 2 KV, D) tensor have unit
+    D stride and 16-byte strides: the kernel reads them without a copy.  A
+    view whose pointer is off the 16-byte grid is copied first; both agree
+    with the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, kv, d = 2, 333, 6, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    fused = torch.randn((b, s, h + 2 * kv, d), generator=g, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = fused[:, :, :h], fused[:, :, h:h + kv], fused[:, :, h + kv:]
+    assert not q.is_contiguous() and all(fa._kernel_layout(t) is t for t in (q, k, v))
+    flat = torch.randn(b * s * h * d + 1, generator=g, device=cuda).to(torch.bfloat16)
+    q_off = flat[1:].view(b, s, h, d)
+    assert fa._kernel_layout(q_off) is not q_off
+    for qq in (q, q_off):
+        got = ops.flash_attention(qq, k, v, causal=True)
+        want = ref.flash_attention_ref(qq, k, v, causal=True)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=FA_TOL["bfloat16"][0],
+                                   rtol=FA_TOL["bfloat16"][1])
+
+
 # K4 cases: (B, S, H, P, G, N, chunk)
 SSD_CASES = [
     (1, 2048, 80, 64, 1, 128, 256),   # the serving path's shape
     (2, 1000, 8, 64, 2, 128, 256),    # G = 2, ragged
     (1, 300, 4, 24, 1, 20, 128),      # P and N off the 16 grid, ragged
     (1, 100, 4, 8, 2, 8, 32),
+    (1, 512, 12, 64, 1, 128, 256),    # 12 heads: subsets of 8 and 4
+    (1, 600, 16, 32, 4, 64, 128),     # G = 4: one short subset per group
+    (1, 256, 6, 80, 2, 32, 256),      # P > 64: subsets of 4 heads
+    (1, 640, 4, 64, 1, 32, 320),      # q = 320: S in two windows
 ]
 
 

@@ -140,6 +140,26 @@ def test_build_is_keyed_on_source_and_flags(monkeypatch):
     assert build.library_path("flash_attention") != first
 
 
+def test_build_is_keyed_on_shared_headers(monkeypatch, tmp_path):
+    """Editing only a header under csrc/ names another library for every
+    source, and editing it back names the first one again."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "helpers.cuh"\nint f() { return g(); }\n')
+    header = csrc / "helpers.cuh"
+    header.write_text("inline int g() { return 1; }\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    first = build.library_path("k")
+    header.write_text("inline int g() { return 2; }\n")
+    second = build.library_path("k")
+    assert second != first and second.name.startswith("libk-")
+    (csrc / "more.cuh").write_text("// another header\n")
+    assert build.library_path("k") not in (first, second)
+    (csrc / "more.cuh").unlink()
+    header.write_text("inline int g() { return 1; }\n")
+    assert build.library_path("k") == first
+
+
 def test_cpu_path_is_the_plain_version_and_counts_no_launch():
     src = torch.arange(64.0).reshape(16, 4)
     offs = np.asarray([1, 0], np.int32)

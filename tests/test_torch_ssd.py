@@ -39,6 +39,9 @@ CASES = [
     (2, 128, 4, 16, 2, 16, 32),
     (1, 100, 4, 8, 1, 8, 32),        # ragged: s % chunk != 0
     (1, 300, 8, 24, 2, 20, 128),     # ragged, q > 64, P and N off the 16 grid
+    (1, 96, 12, 8, 1, 8, 32),        # 12 heads: the kernel's subsets of 8 and 4
+    (1, 80, 16, 8, 4, 8, 32),        # G = 4: one short subset per group
+    (1, 70, 3, 72, 1, 12, 64),       # P > 64: the kernel's subsets of 4 heads
 ]
 
 
