@@ -48,7 +48,29 @@ JSON line and any failure exiting non-zero:
    share of the kernel's time, the plain version and one PyTorch call
    computing the same function where there is one.  ``launches`` is the
    count on the path: phase 3 for K1/K2, phase 6's requests for K3 bf16 and
-   K4, phase 6's float32 logits gate for K3 float32.
+   K4, phase 6's float32 logits gate for K3 float32; K1/K2 also carry their
+   launches in each run of phase 8 (``launches_faults``);
+8. faults -- checkpointed restart and elastic rescale on ``cuda:0`` at the
+   field size of phase 3: one ``nyx`` evolves a 256^3 float32 density (from
+   ``--seed``) through 8 snapshots with a torch diffusion step and
+   checkpoints ``{"rho", "t"}`` (64 MiB) after every snapshot under
+   ``on_failure: restart``; ``reeber`` (2 instances x 2 ranks, axis 0,
+   ``on_failure: {rescale: {nslots: 1}}``, a stall watchdog) cuts each slab
+   into rank blocks with ``comm.reshard(..., prefer="pack")`` (K1), counts
+   the cells above a threshold per row and snapshot, and checkpoints the
+   counts as a shard; ``viz`` (``io_freq: 2``, axis 1, K2) is dropped when
+   it fails.  Four runs: (a) crash-free, (b) ``reeber[0]`` crashes at recv
+   step 2 (policy rescale 2->1), (c) ``reeber[1]`` stalls at recv step 1
+   (watchdog rescale 2->1), (d) ``nyx`` crashes at close step 3 and restarts
+   from its checkpoint while ``viz`` crashes and is dropped.  Gates: every
+   run's counts byte-identical to (a)'s, (a)'s equal to the same 8 steps
+   recounted in a plain loop on the card, exactly one (2, 1) rescale in (b)
+   and (c) with triggers ``policy`` and ``stall``, and in every run K1's
+   launches (counts set to 0 just before the run, read just after) equal to
+   the rank blocks ``reeber``'s ``comm.reshard`` calls returned (one launch
+   per block), K2's to ``viz``'s.  Printed per run: wall time per snapshot,
+   checkpoint blocking time and bytes, restart and rescale latency and cut
+   step, the calls and launches.
 
 The lines before the last are the whole run's wall time (builds included),
 the per-kernel summary and the card's name and power limit; the last line
@@ -108,6 +130,19 @@ SERVE_MAX_LEN = 4096
 F32_LIMIT = {"llama3.2-3b": 1e-4, "mamba2-2.7b": 2e-3}
 BF16_RATIO = 2.0
 TIME_S = 2048                # serving shape at which K3 and K4 are timed
+# phase 8: the fault-tolerance runs
+FAULT_SNAPSHOTS = 8
+THRESHOLD = 1.01             # a halo cell: density above this
+STALL_TIMEOUT_S = 1.5        # reeber's watchdog window
+STALL_S = 5.0                # run (c)'s injected stall, well past the window
+FAULT_RUNS = (
+    ("a", []),
+    ("b", [{"task": "reeber", "point": "recv", "step": 2, "instance": 0}]),
+    ("c", [{"task": "reeber", "kind": "stall", "point": "recv", "step": 1,
+            "instance": 1, "seconds": STALL_S}]),
+    ("d", [{"task": "nyx", "point": "close", "step": 3},
+           {"task": "viz", "point": "open", "step": 1}]),
+)
 
 
 def emit(obj) -> None:
@@ -147,6 +182,11 @@ def check_kernels(ops, ref, build, dev) -> float:
     # the shapes the main path hands the kernels (see phase 3)
     cases += [(torch.float32, 0, (128, 65536), TILE, 8),
               (torch.float32, 1, (256, 32768), TILE * 256, 8)]
+    # ... and phase 8: reeber's 128-row slabs and, after the rescale, its
+    # 256-row slab, two ranks each; viz's whole field in column tiles
+    cases += [(torch.float32, 0, (128, 65536), TILE, 8),
+              (torch.float32, 0, (256, 65536), TILE, 16),
+              (torch.float32, 1, (256, 65536), TILE * 256, 16)]
     worst = 0.0
     for dt, dim, shape, tile, t in cases:
         src = torch.randint(-1000, 1000, shape, generator=g, device=dev).to(dt)
@@ -661,6 +701,195 @@ def time_model_kernels(ref, fa, ssd, dev, rates, launches, errs):
     return out
 
 
+# --------------------------------------------------------------- phase 8
+def evolve(rho, t):
+    """One deterministic diffusion step (pure function of (state, t))."""
+    lap = sum(torch.roll(rho, s, a) for a in range(3) for s in (1, -1)) - 6 * rho
+    return torch.clamp(rho + 0.1 * lap + 0.01 * torch.sin(t + rho), min=0.0)
+
+
+def initial_density(dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return 1.0 + 0.05 * torch.randn(SHAPE, generator=g, device=dev)
+
+
+def plain_recount(dev, seed):
+    """The counts of phase 8 without Wilkins: the same steps in a loop."""
+    rho = initial_density(dev, seed)
+    counts = torch.zeros((SHAPE[0], FAULT_SNAPSHOTS), dtype=torch.int64,
+                         device=dev)
+    for t in range(FAULT_SNAPSHOTS):
+        rho = evolve(rho, t)
+        counts[:, t] = (rho > THRESHOLD).sum(dim=(1, 2))
+    return counts
+
+
+def fault_run(core, build, dev, seed, faults, spill_dir):
+    """One run of phase 8's workflow; returns its report, reeber's counts
+    (rows x snapshots, concatenated over the final instances) and what the
+    tasks measured."""
+    from repro_torch.core.redistribute import even_blocks
+
+    port = [{"filename": "plt*.h5", "dsets": [{"name": "/density", "memory": 1}]}]
+    cfg = {"tasks": [
+        {"func": "nyx", "nprocs": 1,
+         "on_failure": {"restart": {"max_retries": 3}}, "outports": port},
+        {"func": "reeber", "taskCount": 2, "nprocs": 2,
+         "stall_timeout_s": STALL_TIMEOUT_S,
+         "on_failure": {"rescale": {"nslots": 1, "max_retries": 3}},
+         "inports": [dict(port[0], redistribute=1)]},
+        {"func": "viz", "nprocs": 2, "on_failure": "drop",
+         "inports": [dict(port[0], io_freq=2, redistribute={"axis": 1})]},
+    ]}
+    lock = threading.Lock()
+    got = {"calls": {"reeber": 0, "viz": 0}, "blocks": {"reeber": 0, "viz": 0},
+           "ckpt_s": [], "ckpt_bytes": 0, "restored_at": None, "counts": {}}
+
+    def nyx(comm):
+        state = {"rho": initial_density(comm.device, seed),
+                 "t": torch.zeros((), dtype=torch.int64)}
+        restored = comm.restore(state)
+        if restored is not None:
+            state = restored[1]
+            torch.cuda.synchronize()
+            got["restored_at"] = time.monotonic()
+        for t in range(int(state["t"]), FAULT_SNAPSHOTS):
+            rho = evolve(state["rho"], t)
+            with core.h5.File(f"plt{t:05d}.h5", "w") as f:
+                f.create_dataset("/density", data=rho, copy=False)
+            state = {"rho": rho, "t": torch.tensor(t + 1)}
+            t0 = time.perf_counter()
+            comm.checkpoint(state)
+            with lock:
+                got["ckpt_s"].append(time.perf_counter() - t0)
+                got["ckpt_bytes"] = sum(v.numel() * v.element_size()
+                                        for v in state.values())
+
+    def reshard(comm, f):
+        blocks = comm.reshard(f["/density"], prefer="pack")
+        with lock:
+            got["calls"][comm.task] += 1
+            got["blocks"][comm.task] += sum(1 for b in blocks if b.numel())
+        return blocks
+
+    def reeber(comm):
+        spec = comm.resolve_redist_spec(port="plt*.h5")
+        _, (rows, _, _) = even_blocks(SHAPE, spec.nslots)[spec.slot]
+        like = {"counts": torch.zeros((rows, FAULT_SNAPSHOTS), dtype=torch.int64,
+                                      device=comm.device),
+                "n": torch.zeros((), dtype=torch.int64)}
+        state = like
+        restored = comm.restore(like)
+        if restored is not None:
+            state = restored[1]
+        counts, n = state["counts"].clone(), int(state["n"])
+        while True:
+            f = core.h5.File("plt*.h5", "r")
+            if f is None:
+                break
+            blocks = reshard(comm, f)
+            counts[:, n] = torch.cat([(b > THRESHOLD).sum(dim=(1, 2))
+                                      for b in blocks])
+            n += 1
+            comm.checkpoint({"counts": counts, "n": torch.tensor(n)},
+                            sharded_axes={"counts": 0})
+        with lock:
+            got["counts"][comm.instance] = counts
+
+    def viz(comm):
+        while True:
+            f = core.h5.File("plt*.h5", "r")
+            if f is None:
+                break
+            reshard(comm, f)
+
+    w = core.Wilkins(cfg, {"nyx": nyx, "reeber": reeber, "viz": viz},
+                     devices=[dev], spill_dir=spill_dir)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = w.run(timeout=300, faults=faults or None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got["launches"] = build.launch_counts(["pack_blocks", "pack_cols"])
+    final = w.graph.tasks["reeber"].task_count
+    got["final_instances"] = final
+    counts = torch.cat([got["counts"][j] for j in range(final)])
+    return report, counts, got, wall
+
+
+def faults_phase(core, build, dev, seed):
+    """Phase 8: the four runs and their gates; returns K1/K2's launches per
+    run and the phase's summary line."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    plain = plain_recount(dev, seed)
+    ref = None
+    launches = {}
+    problems = []
+    for tag, faults in FAULT_RUNS:
+        spill = tempfile.mkdtemp(prefix="wilkins_faults_")
+        try:
+            report, counts, got, wall = fault_run(core, build, dev, seed,
+                                                  faults, spill)
+        finally:
+            shutil.rmtree(spill, ignore_errors=True)
+        if ref is None:
+            ref = counts
+            if not torch.equal(counts, plain):
+                problems.append("(a): counts differ from the plain recount")
+        elif not torch.equal(counts, ref):
+            problems.append(f"({tag}): counts differ from (a)'s")
+        rescales = [(e["old_nslots"], e["new_nslots"], e["trigger"])
+                    for e in report.rescales]
+        want = {"b": [(2, 1, "policy")], "c": [(2, 1, "stall")]}.get(tag, [])
+        if rescales != want:
+            problems.append(f"({tag}): rescales {rescales}, expected {want}")
+        if tag == "d" and ([e["task"] for e in report.restarts] != ["nyx"]
+                           or report.dropped_tasks != [("viz", 0)]):
+            problems.append(f"(d): restarts {report.restarts}, dropped "
+                            f"{report.dropped_tasks}")
+        k1, k2 = got["launches"]["pack_blocks"], got["launches"]["pack_cols"]
+        if k1 != got["blocks"]["reeber"] or k1 <= 0:
+            problems.append(f"({tag}): K1 launched {k1} times for "
+                            f"{got['blocks']['reeber']} reeber blocks")
+        if k2 != got["blocks"]["viz"] or k2 <= 0:
+            problems.append(f"({tag}): K2 launched {k2} times for "
+                            f"{got['blocks']['viz']} viz blocks")
+        launches[tag] = {"pack_blocks": k1, "pack_cols": k2}
+        row = {"phase": "faults_run", "run": tag, "faults": faults,
+               "wall_s": wall, "wall_s_per_snapshot": wall / FAULT_SNAPSHOTS,
+               "counts_equal_a": bool(torch.equal(counts, ref)),
+               "halo_cells_per_snapshot": counts.sum(dim=0).tolist(),
+               "checkpoints": len(got["ckpt_s"]),
+               "ckpt_bytes": got["ckpt_bytes"],
+               "ckpt_block_s_median": statistics.median(got["ckpt_s"]),
+               "ckpt_block_s_max": max(got["ckpt_s"]),
+               "reshard_calls": got["calls"], "rank_blocks": got["blocks"],
+               "launches": launches[tag],
+               "rescales": [{k: e[k] for k in ("old_nslots", "new_nslots",
+                                               "trigger", "cut_step",
+                                               "latency_s")}
+                            for e in report.rescales],
+               "stalls": [{k: e[k] for k in ("instance", "silent_s", "action")}
+                          for e in report.stalls],
+               "restarts": [e["task"] for e in report.restarts],
+               "dropped": report.dropped_tasks,
+               "final_reeber_instances": got["final_instances"]}
+        if tag == "d" and report.restarts and got["restored_at"] is not None:
+            row["restart_latency_s"] = got["restored_at"] - report.restarts[0]["t"]
+        emit(row)
+    summary = {"phase": "faults", "runs": [t for t, _ in FAULT_RUNS],
+               "counts_equal": not any("counts" in p for p in problems),
+               "plain_recount_equal": bool(torch.equal(ref, plain)),
+               "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    emit(summary)
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -747,7 +976,12 @@ def main() -> int:
         if problems:
             raise RuntimeError("; ".join(problems))
 
+    faults_launches = faults_phase(core, build, dev, args.seed)
+
     kernels = time_kernels(pack, ops, ref, dev, rates[0], launches, STEPS, worst)
+    for k in kernels:
+        k["launches_faults"] = {run: n[k["name"]]
+                                for run, n in faults_launches.items()}
     kernels += time_model_kernels(ref, fa, ssd, dev, rates, launches, errs)
     emit({"phase": "run", "run_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})

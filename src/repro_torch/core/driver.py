@@ -23,6 +23,7 @@ than by OS processes.
 from __future__ import annotations
 
 import os
+import tempfile
 import threading
 import time
 import traceback
@@ -260,7 +261,8 @@ class Wilkins:
         missing = [t for t in self.graph.tasks if t not in self.funcs]
         if missing:
             raise ValueError(f"no callable provided for tasks: {missing}")
-        self.spill_dir = spill_dir or os.path.join("/tmp", f"wilkins_spill_{os.getpid()}")
+        self.spill_dir = spill_dir or os.path.join(tempfile.gettempdir(),
+                                                  f"wilkins_spill_{os.getpid()}")
         self.record_events = record_events
         self.max_restarts = max_restarts
         self.action_dirs = list(action_dirs)
@@ -654,8 +656,8 @@ class Wilkins:
 
     def _execute_rescale(self, op: Any) -> None:
         """Surgery executor the supervisor's ``lead(op)`` dispatches to."""
-        raise NotImplementedError(
-            "elastic rescale is not yet ported (core/rescale.py)")
+        from .rescale import execute_rescale
+        execute_rescale(self, op)
 
     def _validate_rescale_request(self, task: str,
                                   nslots: Optional[int] = None,

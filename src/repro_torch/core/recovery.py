@@ -536,7 +536,8 @@ class RecoveryContext:
         # lazy: tasks that never checkpoint never create the directory
         with self._lock:
             if self._ck is None:
-                _checkpoint_not_ported()
+                from ..train.checkpoint import AsyncCheckpointer
+                self._ck = AsyncCheckpointer(self.directory, keep=3)
             return self._ck
 
     def checkpoint(self, state: Any, step: Optional[int] = None,
@@ -608,7 +609,11 @@ class RecoveryContext:
             raise SupersededError(
                 f"{self.task}[{self.instance}]: restore after rescale "
                 f"superseded this incarnation")
-        _checkpoint_not_ported()
+        from ..train.checkpoint import restore_latest
+        out = restore_latest(self.directory, like)
+        if out is not None:
+            self._next_step = out[0] + 1
+        return out
 
     def latest_step(self) -> Optional[int]:
         """Newest durable checkpoint step, without creating the directory."""
@@ -617,12 +622,6 @@ class RecoveryContext:
             return None
         with open(p) as f:
             return int(f.read().strip())
-
-
-def _checkpoint_not_ported() -> None:
-    raise NotImplementedError(
-        "checkpoint/restore need train/checkpoint.py, which is not yet "
-        "ported (ROADMAP Queue 1 item 7)")
 
 
 # ---------------------------------------------------------------------------

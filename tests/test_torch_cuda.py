@@ -306,3 +306,95 @@ def test_two_layer_engine_on_the_card_counts_its_launches(cuda, arch):
         outs[use_flash] = [r.out_tokens for r in reqs]
     agree = sum(a == b for a, b in zip(outs[True], outs[False]))
     assert agree >= 2, outs
+
+
+# --------------------------------------------------------- recovery slice
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    from repro_torch.train import checkpoint as ck
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    state = {"rho": torch.randn((8, 5), generator=g, device=cuda),
+             "w": torch.randn(6, generator=g, device=cuda).to(torch.bfloat16),
+             "n": torch.tensor(4)}
+    saver = ck.AsyncCheckpointer(str(tmp_path))
+    saver.save(0, state)
+    state["rho"].mul_(2.0)            # written in place after save returned
+    saver.wait()
+    out = ck.load_pytree(str(tmp_path / "step_00000000.ckpt"),
+                         {"rho": torch.zeros((8, 5), device=cuda),
+                          "w": torch.zeros(6, dtype=torch.bfloat16, device=cuda),
+                          "n": torch.zeros((), dtype=torch.int64)})
+    assert out["rho"].is_cuda and out["w"].is_cuda and not out["n"].is_cuda
+    assert torch.equal(out["rho"] * 2.0, state["rho"])
+    assert torch.equal(out["w"].view(torch.int16), state["w"].view(torch.int16))
+
+
+def test_policy_rescale_replays_tensors_on_the_card(cuda, tmp_path):
+    """reeber loses an instance at step 1 and comes back at one instance:
+    the replayed steps reach it as CUDA tensors stitched on the card, its
+    per-rank blocks go through K1, and the counts equal a crash-free run."""
+    from repro_torch.core import FaultSpec, world
+
+    yaml = """
+tasks:
+  - func: sim
+    on_failure: {restart: {max_retries: 2}}
+    outports: [{filename: f.h5, dsets: [{name: /d, memory: 1}]}]
+  - func: reeber
+    taskCount: 2
+    nprocs: 2
+    on_failure: {rescale: {nslots: 1, max_retries: 2}}
+    inports: [{filename: f.h5, redistribute: 1, dsets: [{name: /d, memory: 1}]}]
+"""
+    rows, steps = 64, 4
+
+    def run(faults):
+        out, kinds, blocks = {}, set(), [0]
+
+        def sim(comm):
+            r = comm.restore({"t": torch.zeros((), dtype=torch.int64)})
+            for t in range(int(r[1]["t"]) if r else 0, steps):
+                g = torch.Generator(device=cuda).manual_seed(t)
+                with h5.File("f.h5", "w") as f:
+                    f.create_dataset("/d", copy=False, data=torch.rand(
+                        (rows, 32, 16), generator=g, device=cuda))
+                comm.checkpoint({"t": torch.tensor(t + 1)})
+
+        def reeber():
+            comm = world()
+            spec = comm.resolve_redist_spec(port="f.h5")
+            _, (n_rows, _, _) = even_blocks((rows, 32, 16), spec.nslots)[spec.slot]
+            like = {"c": torch.zeros((n_rows, steps), dtype=torch.int64,
+                                     device=cuda),
+                    "n": torch.zeros((), dtype=torch.int64)}
+            r = comm.restore(like)
+            c, n = (r[1]["c"].clone(), int(r[1]["n"])) if r else (like["c"], 0)
+            while True:
+                f = h5.File("f.h5", "r")
+                if f is None:
+                    break
+                kinds.add(f["/d"].read_direct().device.type)
+                bs = comm.reshard(f["/d"], prefer="pack")
+                blocks[0] += len(bs)
+                c[:, n] = torch.cat([(b > 0.5).sum(dim=(1, 2)) for b in bs])
+                n += 1
+                comm.checkpoint({"c": c, "n": torch.tensor(n)},
+                                sharded_axes={"c": 0})
+            out[comm.instance] = c
+
+        w = Wilkins(yaml, {"sim": sim, "reeber": reeber}, devices=[cuda],
+                    spill_dir=str(tmp_path / str(bool(faults))))
+        build.reset_launch_counts(PACK)
+        rep = w.run(timeout=120, faults=faults)
+        torch.cuda.synchronize()
+        final = w.graph.tasks["reeber"].task_count
+        counts = torch.cat([out[j] for j in range(final)])
+        return rep, counts, kinds, blocks[0], build.launch_counts(PACK)
+
+    _, ref_counts, _, _, _ = run(None)
+    rep, counts, kinds, blocks, launches = run(
+        FaultSpec(task="reeber", point="recv", step=1, instance=0))
+    assert [(e["old_nslots"], e["new_nslots"]) for e in rep.rescales] == [(2, 1)]
+    assert kinds == {"cuda"}
+    assert torch.equal(counts, ref_counts)
+    assert launches["pack_blocks"] == blocks > 0

@@ -291,10 +291,14 @@ def test_reshard_blocks_takes_tensors():
         np.testing.assert_array_equal(a, b)
 
 
-def test_checkpoint_is_not_yet_ported():
-    ctx = trec.RecoveryContext("t", 0, "/nonexistent", [], [])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ctx.restore(like={})
+def test_checkpoint_restores_tensors_where_like_lives(tmp_path):
+    ctx = trec.RecoveryContext("t", 0, str(tmp_path / "ck"), [], [])
+    assert ctx.restore(like={"x": torch.zeros(3)}) is None
+    assert ctx.checkpoint({"x": torch.arange(3.0), "n": np.int64(4)}) == 0
+    step, state = trec.RecoveryContext("t", 0, str(tmp_path / "ck")).restore(
+        like={"x": torch.zeros(3, dtype=torch.float64), "n": np.zeros((), np.int64)})
+    assert step == 0 and state["x"].dtype == torch.float64
+    assert state["x"].tolist() == [0.0, 1.0, 2.0] and int(state["n"]) == 4
 
 
 # --------------------------------------------------------------- spill files

@@ -1,0 +1,28 @@
+"""The port's examples run to their end on the CPU (``--device cpu``), their
+own asserts included: halo counts identical to a crash-free run after
+restarts, a drop, a policy rescale and a watchdog rescale, and a traced run
+that exports all six span layers."""
+
+import os
+import runpy
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
+
+
+@pytest.mark.parametrize("name", [
+    "torch_quickstart", "torch_cosmology_flowcontrol",
+    "torch_cosmology_faulttolerant", "torch_cosmology_elastic",
+    "torch_cosmology_traced"])
+def test_example_runs_on_the_cpu(name, tmp_path, monkeypatch, capsys):
+    argv = [name, "--device", "cpu"]
+    if name == "torch_cosmology_traced":
+        argv += ["--trace", str(tmp_path / "trace.json")]
+    monkeypatch.setattr(sys, "argv", argv)
+    runpy.run_path(os.path.join(EXAMPLES, f"{name}.py"), run_name="__main__")
+    out = capsys.readouterr().out
+    assert "wall_time_s=" in out

@@ -49,14 +49,38 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
         "repro_torch.serve", "repro_torch.serve.engine",
         "repro_torch.launch", "repro_torch.launch.serve",
         "repro_torch.configs",
+        "repro_torch.train", "repro_torch.train.checkpoint",
+        "repro_torch.obs.__main__",
     } | {f"repro_torch.core.{m}" for m in (
         "scheduler", "datamodel", "redistribute", "comm", "recovery",
-        "channel", "vol", "h5", "actions", "graph", "driver")} | {
+        "channel", "vol", "h5", "actions", "graph", "driver", "rescale")} | {
         f"repro_torch.configs.{m}" for m in (
             "arctic_480b", "deepseek_coder_33b", "internvl2_76b", "llama32_3b",
             "mamba2_2_7b", "phi35_moe", "phi3_mini", "tinyllama_1_1b",
             "whisper_base", "zamba2_2_7b")}
     assert expected <= set(res["modules"])
+
+
+_RESTORE_PROBE = """
+import json, sys
+import repro_torch.core
+before = set(sys.modules)
+import repro_torch.train.checkpoint
+print(json.dumps(sorted(set(sys.modules) - before)))
+"""
+
+
+def test_restore_imports_only_the_checkpoint_module():
+    """A task's first ``restore`` imports ``repro_torch.train.checkpoint``
+    inside the stall watchdog's window: it must bring nothing else of the
+    package (the JAX package's brings its trainer; ROADMAP Queue 3)."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", _RESTORE_PROBE], env=env,
+                         check=True, capture_output=True, text=True,
+                         timeout=120)
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [m for m in new if m.startswith("repro_torch")] == \
+        ["repro_torch.train", "repro_torch.train.checkpoint"]
 
 
 def test_port_sources_name_no_jax_import():
@@ -107,10 +131,48 @@ def test_explorer_flag_raises_until_the_explorer_is_ported(monkeypatch):
     assert lockcheck.make_lock("leaf:x") is not None
 
 
-def test_rescale_is_not_yet_ported():
-    from repro_torch.core import Wilkins
+_RESCALE_YAML = """
+tasks:
+  - func: a
+    outports: [{filename: o.h5, dsets: [{name: /g, memory: 1}]}]
+  - func: b
+    taskCount: 2
+    inports: [{filename: o.h5, redistribute: 1, dsets: [{name: /g, memory: 1}]}]
+    on_failure: {rescale: {nslots: 1}}
+"""
 
-    w = Wilkins(_YAML, {"a": lambda: None, "b": lambda: None},
-                devices=[torch.device("cpu")])
-    with pytest.raises(NotImplementedError, match="rescale"):
-        w._execute_rescale(None)
+
+def test_policy_rescale_2_to_1_completes(tmp_path):
+    """A crashed instance of a two-instance consumer brings the task back
+    at one instance, which gets every step's whole field as a tensor."""
+    from repro_torch.core import FaultSpec, Wilkins, h5, world
+
+    cpu = torch.device("cpu")
+    got = {}
+
+    def a():
+        for t in range(3):
+            with h5.File("o.h5", "w") as f:
+                f.create_dataset("/g", data=torch.full((6,), float(t)), copy=False)
+
+    def b():
+        comm = world()
+        sizes = []
+        while True:
+            f = h5.File("o.h5", "r")
+            if f is None:
+                break
+            slab = f["/g"][...]
+            assert isinstance(slab, torch.Tensor)
+            sizes.append(slab.numel())
+        got[comm.instance] = sizes
+
+    w = Wilkins(_RESCALE_YAML, {"a": a, "b": b}, devices=[cpu],
+                spill_dir=str(tmp_path))
+    rep = w.run(timeout=60, faults=FaultSpec(task="b", point="recv", step=1,
+                                             instance=0))
+    assert [(e["old_nslots"], e["new_nslots"], e["trigger"])
+            for e in rep.rescales] == [(2, 1, "policy")]
+    assert w.graph.tasks["b"].task_count == 1
+    assert w.device_groups[("b", 0)] == [cpu]
+    assert got == {0: [6, 6, 6]}  # no checkpoint: every step replayed whole
