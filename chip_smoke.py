@@ -24,9 +24,10 @@ JSON line and any failure exiting non-zero:
    CUDA-core kernel) and bfloat16 (its tensor-core kernel), MHA / GQA / MQA,
    head dims 16 to 128, causal, windowed and non-causal, S not a multiple of
    the 64-row tile, q/k/v as strided slices of one fused tensor (read in
-   place), and the serving shape in both dtypes; K4 with 1, 2 and 4 groups,
-   head counts that leave a short head subset, P above 64, ragged S and the
-   serving shape; TF32 off, so the plain versions are float32;
+   place), the serving shape in both dtypes and phase 9's training shape
+   (batch 2) in bf16; K4 with 1, 2 and 4 groups, head counts that leave a
+   short head subset, P above 64, ragged S, the serving shape and the
+   training shape; TF32 off, so the plain versions are float32;
 6. serve -- ``llama3.2-3b`` and then ``mamba2-2.7b`` at full width (random
    weights from ``--seed``, bf16) through ``repro_torch.serve.Engine`` on
    ``cuda:0`` with ``use_flash``: 8 greedy requests of 16 new tokens, prompts
@@ -49,7 +50,8 @@ JSON line and any failure exiting non-zero:
    computing the same function where there is one.  ``launches`` is the
    count on the path: phase 3 for K1/K2, phase 6's requests for K3 bf16 and
    K4, phase 6's float32 logits gate for K3 float32; K1/K2 also carry their
-   launches in each run of phase 8 (``launches_faults``);
+   launches in each run of phase 8 (``launches_faults``), K3 bf16 and K4
+   in phase 9's training steps (``launches_train``);
 8. faults -- checkpointed restart and elastic rescale on ``cuda:0`` at the
    field size of phase 3: one ``nyx`` evolves a 256^3 float32 density (from
    ``--seed``) through 8 snapshots with a torch diffusion step and
@@ -70,7 +72,27 @@ JSON line and any failure exiting non-zero:
    the rank blocks ``reeber``'s ``comm.reshard`` calls returned (one launch
    per block), K2's to ``viz``'s.  Printed per run: wall time per snapshot,
    checkpoint blocking time and bytes, restart and rescale latency and cut
-   step, the calls and launches.
+   step, the calls and launches;
+9. train -- ``llama3.2-3b`` and then ``mamba2-2.7b`` trained with
+   ``repro_torch.train`` on ``cuda:0``, K3 and K4 under autograd (their
+   forward the kernel, their backward a plain recompute).  (a) A gradient
+   gate at full width and 2 layers on float32 weights, batch 1 x 2048
+   tokens: the kernel path's loss within 1e-5 and every parameter's
+   gradient within 1e-4 (relative L2) of the plain path's.  (b) Full width
+   and depth as configured (bf16, ``remat="full"``, ``use_flash``): 4
+   steps of ``make_train_step`` on batch 2 x 2048 tokens of
+   ``SyntheticCorpus(seed)`` with ``AdamWConfig(lr=1e-3, warmup_steps=1,
+   total_steps=4)``; every loss finite, the 4th below the 1st, the kernel
+   launched exactly 2 x layers per step (the forward and the checkpoint's
+   recompute; counts set to 0 just before the 4 steps and read just after),
+   the other model kernel and the plain versions of K3/K4 never.  Printed:
+   seconds per step, tokens/s, peak device memory, and, from a fifth step
+   taken under ``torch.profiler``, the device time per step by kernel kind
+   and its share of the unprofiled step's wall time (the busy share), and
+   the wall time of one more AdamW update (on zero gradients).  (c) Each autograd
+   Function's gradients of sum(out^2) against autograd through the plain
+   op on the card at 2e-4 in float32: K3 at the serving shape, K4 at
+   S = 2048.
 
 The lines before the last are the whole run's wall time (builds included),
 the per-kernel summary and the card's name and power limit; the last line
@@ -130,6 +152,13 @@ SERVE_MAX_LEN = 4096
 F32_LIMIT = {"llama3.2-3b": 1e-4, "mamba2-2.7b": 2e-3}
 BF16_RATIO = 2.0
 TIME_S = 2048                # serving shape at which K3 and K4 are timed
+# phase 9: training at full width, one model after the other
+TRAIN_ARCHS = (("llama3.2-3b", "flash_attention"), ("mamba2-2.7b", "ssd_intra_chunk"))
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+GATE_LAYERS, GATE_BATCH = 2, 1
+LOSS_LIMIT = 1e-5            # kernel vs plain path, float32, relative
+GRAD_LIMIT = 1e-4            # relative L2, every parameter
+FN_GRAD_TOL = 2e-4           # each Function vs the plain op (test_kernels.py)
 # phase 8: the fault-tolerance runs
 FAULT_SNAPSHOTS = 8
 THRESHOLD = 1.01             # a halo cell: density above this
@@ -363,6 +392,7 @@ FA_CASES = [  # (B, S, H, KV, D, dtype, causal, window)
     (2, 999, 6, 2, 96, torch.bfloat16, False, 0),      # a multiple of 64
     (1, TIME_S, 24, 8, 128, torch.float32, True, 0),   # the serving shape
     (1, TIME_S, 24, 8, 128, torch.bfloat16, True, 0),
+    (2, TIME_S, 24, 8, 128, torch.bfloat16, True, 0),  # the training shape
 ]
 # bf16 q/k/v as slices of one fused (B, S, H + 2 KV, D) tensor: strided views
 # with unit D stride, which the kernel reads in place: (B, S, H, KV, D, causal)
@@ -379,6 +409,7 @@ SSD_CASES = [  # (B, S, H, P, G, N, chunk)
     (1, 1000, 16, 32, 4, 64, 128),    # G = 4: one short subset per group
     (1, 600, 6, 80, 2, 32, 256),      # P > 64: subsets of 4 heads
     (1, TIME_S, 80, 64, 1, 128, 256), # the serving shape
+    (2, TIME_S, 80, 64, 1, 128, 256), # the training shape
 ]
 
 
@@ -452,7 +483,7 @@ def check_model_kernels(ops, ref, build, dev):
         r[key] = max(r[key], err)
         r["max_share_of_limit"] = max(r["max_share_of_limit"], share)
         r["cases"] += 1
-        if s == TIME_S:
+        if s == TIME_S and b == 1:
             r["serving_shape"][str(dt).removeprefix("torch.")] = err
     for i, (b, s, h, p, g_, n, chunk) in enumerate(SSD_CASES):
         args = ssd_inputs(dev, b, s, h, p, g_, n, chunk, 200 + i)
@@ -466,35 +497,39 @@ def check_model_kernels(ops, ref, build, dev):
         r = res["ssd_intra_chunk"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["cases"] += 1
-        if s == TIME_S:
+        if s == TIME_S and b == 1:
             r["max_abs_err_serving_shape"] = err
     return res
 
 
 # --------------------------------------------------------------- phase 6
+def device_kernels(fn):
+    """The CUDA kernels ``fn`` ran, from ``torch.profiler``'s key averages
+    (an empty list where the profiler saw no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
 def decode_device_time(fn, n, wall_per_token):
     """Device (kernel) time per token of ``fn`` under ``torch.profiler``,
     and its share of the unprofiled wall time per token.  A measurement
     only: where the profiler gives no device time, it says so."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        dev_us = sum(e.self_device_time_total for e in events
-                     if e.device_type == DeviceType.CUDA)
-        launches = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+        events = device_kernels(fn)
     except Exception as exc:  # noqa: BLE001 -- the profiler is untried on this card
         return {"decode_device_time": f"not measured: {type(exc).__name__}: {exc}"}
+    dev_us = sum(e.self_device_time_total for e in events)
     if not dev_us:
         return {"decode_device_time": "not measured: no device time in the trace"}
     per_token = dev_us * 1e-6 / n
     return {"decode_device_s_per_token": per_token,
             "decode_device_busy_share": per_token / wall_per_token,
-            "decode_kernels_per_token": launches / n}
+            "decode_kernels_per_token": sum(e.count for e in events) / n}
 
 
 def serve_model(arch, kernel, build, dev, seed, profile):
@@ -890,6 +925,268 @@ def faults_phase(core, build, dev, seed):
     return launches
 
 
+# --------------------------------------------------------------- phase 9
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def profiled_step(step, state, batch, wall_per_step):
+    """One training step under ``torch.profiler``: its device (kernel)
+    time by kernel kind, that time's share of the unprofiled wall time per
+    step, and the kernels that took the most device time.  A measurement
+    only: where the profiler gives no device time, it says so."""
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        box["state"], _ = step(state, batch)
+        torch.cuda.synchronize()
+        box["wall"] = time.perf_counter() - t0
+
+    try:
+        dev = device_kernels(run)
+    except Exception as exc:  # noqa: BLE001 -- the profiler is a measurement only
+        return box.get("state", state), {
+            "busy_share": f"not measured: {type(exc).__name__}: {exc}"}
+    state, wall = box["state"], box["wall"]
+    dev_s = sum(e.self_device_time_total for e in dev) * 1e-6
+    if not dev_s:
+        return state, {"busy_share": "not measured: no device time in the trace"}
+    by_kind = {}
+    for e in dev:
+        kind = kernel_kind(e.key)
+        t, n = by_kind.get(kind, (0.0, 0))
+        by_kind[kind] = (t + e.self_device_time_total * 1e-6, n + e.count)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
+    return state, {
+        "profiled_step_s": wall, "device_s_per_step": dev_s,
+        "busy_share": dev_s / wall_per_step,
+        "busy_share_of_profiled_step": dev_s / wall,
+        "device_kernels_per_step": sum(e.count for e in dev),
+        "device_s_by_kind": {k: [t, n] for k, (t, n) in
+                             sorted(by_kind.items(), key=lambda kv: -kv[1][0])},
+        "top_device_kernels": [[e.key[:80], e.self_device_time_total * 1e-6, e.count]
+                               for e in top]}
+
+
+def kernel_kind(name: str) -> str:
+    """A device kernel's kind, from its name: K3 and K4, float32 matrix
+    products (the plain backward recomputes run with TF32 off), other
+    matrix products (bf16), reductions, copies and gathers, elementwise."""
+    n = name.lower()
+    for kind, keys in (("K3 flash_attention", ("fa_tc_kernel", "fa_fwd_kernel")),
+                       ("K4 ssd_intra_chunk", ("ssd_intra_chunk",)),
+                       ("matmul float32", ("f32f32", "sgemm")),
+                       ("matmul other", ("gemm", "nvjet", "cutlass", "xmma")),
+                       ("reduction", ("reduce", "softmax", "norm")),
+                       ("copy, gather, cat", ("copy", "index", "cat", "gather",
+                                              "scatter")),
+                       ("elementwise", ("elementwise",))):
+        if any(k in n for k in keys):
+            return kind
+    return "other"
+
+
+def train_gate(arch, kernel, build, dev, seed):
+    """Phase 9 (a): the kernel path against the plain path at full width,
+    2 layers, float32 weights, batch 1 x 2048: loss and every gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_family
+    from repro_torch.train import DataConfig, SyntheticCorpus
+
+    base = get_config(arch).replace(n_layers=GATE_LAYERS, dtype="float32")
+    fam = get_family(base)
+    model = fam.init(base, torch.Generator(device=dev).manual_seed(seed), dev)
+    host = SyntheticCorpus(DataConfig(vocab=base.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=GATE_BATCH, seed=seed)).batch(0)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+    names, params = zip(*model.named_parameters())
+    out, launched = {}, 0
+    for use_flash in (True, False):
+        before = build.launch_counts([kernel])[kernel]
+        loss = fam.loss_fn(model, base.replace(use_flash=use_flash), batch)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        launched += build.launch_counts([kernel])[kernel] - before
+        out[use_flash] = (loss.detach(), grads)
+    (lk, gk), (lp, gp) = out[True], out[False]
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    errs = {n: rel_l2(a, b) for n, a, b in zip(names, gk, gp)}
+    worst = max(errs, key=errs.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in (*gk, *gp))
+    row = {"loss_kernel": float(lk), "loss_plain": float(lp), "loss_rel": loss_rel,
+           "grad_rel_l2_max": errs[worst], "grad_rel_l2_worst_param": worst,
+           "grads_finite": finite, "gate_launches": launched,
+           "limits": {"loss": LOSS_LIMIT, "grad": GRAD_LIMIT}}
+    problems = []
+    if not (finite and loss_rel <= LOSS_LIMIT and errs[worst] <= GRAD_LIMIT):
+        problems.append(f"{arch}: kernel vs plain path at {GATE_LAYERS} layers "
+                        f"in float32: {row}")
+    if launched != 2 * GATE_LAYERS:   # the forward and remat's recompute
+        problems.append(f"{arch}: the gate's kernel path launched {kernel} "
+                        f"{launched} times, expected {2 * GATE_LAYERS}")
+    del model, out, gk, gp, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, problems
+
+
+def train_model(arch, kernel, build, ref, dev, seed):
+    """Phase 9 (b): full width and depth, bf16, remat full, use_flash: 4
+    steps of make_train_step, then a fifth under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticCorpus,
+                                   init_state, make_train_step)
+    from repro_torch.train.optim import adamw_update
+
+    cfg = get_config(arch).replace(use_flash=True)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_state(torch.Generator(device=dev).manual_seed(seed), cfg, ocfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, ocfg)
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=seed))
+    batches = [corpus.batch(i) for i in range(TRAIN_STEPS + 1)]
+
+    plain_calls = {"flash_attention_ref": 0, "ssd_intra_chunk_ref": 0}
+    originals = {n: getattr(ref, n) for n in plain_calls}
+
+    def counting(n):
+        def fn(*a, **kw):
+            plain_calls[n] += 1
+            return originals[n](*a, **kw)
+        return fn
+
+    for n in plain_calls:
+        setattr(ref, n, counting(n))
+    losses, gnorms, step_s = [], [], []
+    try:
+        build.reset_launch_counts()
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = build.launch_counts()
+    finally:
+        for n, f in originals.items():
+            setattr(ref, n, f)
+    peak_mem = torch.cuda.max_memory_allocated(dev)
+    steady = statistics.mean(step_s[1:])
+    state, prof = profiled_step(step, state, batches[TRAIN_STEPS], steady)
+
+    model = state.params
+    # the optimizer's share of a step: one more update, on zero gradients
+    zeros = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adamw_update(model, zeros, state.opt, ocfg)
+    torch.cuda.synchronize()
+    optimizer_s = time.perf_counter() - t0
+    del zeros
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    want = TRAIN_STEPS * 2 * cfg.n_layers
+    problems = []
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"{arch}: losses {losses}: not all finite, or the "
+                        f"{TRAIN_STEPS}th not below the first")
+    if launches.get(kernel, 0) != want:
+        problems.append(f"{arch}: {kernel} launched {launches.get(kernel, 0)} "
+                        f"times in {TRAIN_STEPS} steps, expected {want} "
+                        f"(2 per layer per step: forward and recompute)")
+    others = {k: n for k, n in launches.items() if k != kernel and n}
+    if others or any(plain_calls.values()):
+        problems.append(f"{arch}: other kernels {others} or plain versions "
+                        f"{plain_calls} ran on the training path")
+    row = {"phase": "train", "arch": arch, "dtype": cfg.dtype, "remat": cfg.remat,
+           "use_flash": True, "params": n_params,
+           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+           "moment_bytes": sum(t.numel() * t.element_size()
+                               for t in (*state.opt.m.values(), *state.opt.v.values())),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "lr": ocfg.lr, "init_s": init_s, "losses": losses, "grad_norms": gnorms,
+           "step_s": step_s, "s_per_step": steady, "tokens_per_s": tokens / steady,
+           "first_step_s": step_s[0], "optimizer_s": optimizer_s,
+           "launches": launches,
+           "launches_expected": want, "plain_calls": plain_calls,
+           "max_memory_allocated": peak_mem, **prof}
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, launches, problems
+
+
+def function_grads(ops, dev):
+    """Phase 9 (c): each autograd Function against autograd through the
+    plain op on the card, gradients of sum(out^2), float32: the largest
+    error over each gradient's tolerance (2e-4 relative, and absolute on
+    the scale of its largest entry)."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.ssm import ssd_chunked
+
+    def share(got, want):
+        worst = 0.0
+        for g, w in zip(got, want):
+            lim = FN_GRAD_TOL * (max(1.0, w.abs().max().item()) + w.abs())
+            worst = max(worst, ((g - w).abs() / lim).max().item())
+        return worst
+
+    def grads(fn, ins):
+        xs = [t.clone().requires_grad_() for t in ins]
+        out = fn(*xs)
+        out = out[0] if isinstance(out, tuple) else out
+        return torch.autograd.grad((out ** 2).sum(), xs)
+
+    res = {}
+    q, k, v = fa_inputs(dev, 1, TIME_S, 24, 8, 128, torch.float32, 31)
+    res["flash_attention"] = share(
+        grads(lambda *a: ops.flash_attention(*a, causal=True), (q, k, v)),
+        grads(lambda *a: ref.flash_attention_ref(*a, causal=True), (q, k, v)))
+    gen = torch.Generator(device=dev).manual_seed(32)
+    b, s, h, p, g_, n = 1, TIME_S, 80, 64, 1, 128
+    ins = (torch.randn((b, s, h, p), generator=gen, device=dev),
+           -torch.randn((b, s, h), generator=gen, device=dev).abs() * 0.1,
+           torch.randn((b, s, g_, n), generator=gen, device=dev),
+           torch.randn((b, s, g_, n), generator=gen, device=dev))
+    res["ssd_intra_chunk"] = share(
+        grads(lambda *a: ops.ssd_chunked_kernel(*a, chunk=256), ins),
+        grads(lambda *a: ssd_chunked(*a, chunk=256), ins))
+    torch.cuda.synchronize()
+    bad = {k: v for k, v in res.items() if not v <= 1.0}
+    if bad:
+        raise RuntimeError(f"autograd Function gradients differ from the plain "
+                           f"op's beyond {FN_GRAD_TOL}: {bad} (share of limit)")
+    return {"share_of_limit": res, "tolerance": FN_GRAD_TOL,
+            "shapes": {"flash_attention": "q (1, 2048, 24, 128), k/v (1, 2048, 8, 128) f32",
+                       "ssd_intra_chunk": "x (1, 2048, 80, 64), B/C (1, 2048, 1, 128), chunk 256, f32"}}
+
+
+def train_phase(build, ops, ref, dev, seed):
+    """Phase 9: for each model the gate, the 4 steps and their line; then
+    the Functions' gradients.  Returns each kernel's launches on its
+    model's training steps."""
+    t_phase = time.perf_counter()
+    launches = {}
+    for arch, kernel in TRAIN_ARCHS:
+        gate, problems = train_gate(arch, kernel, build, dev, seed)
+        row, got, more = train_model(arch, kernel, build, ref, dev, seed)
+        row["gate"] = gate
+        emit(row)
+        if problems + more:
+            raise RuntimeError("; ".join(problems + more))
+        launches[kernel] = {arch: got.get(kernel, 0)}
+    emit({"phase": "train_functions", **function_grads(ops, dev),
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -977,12 +1274,18 @@ def main() -> int:
             raise RuntimeError("; ".join(problems))
 
     faults_launches = faults_phase(core, build, dev, args.seed)
+    train_launches = train_phase(build, ops, ref, dev, args.seed)
 
     kernels = time_kernels(pack, ops, ref, dev, rates[0], launches, STEPS, worst)
     for k in kernels:
         k["launches_faults"] = {run: n[k["name"]]
                                 for run, n in faults_launches.items()}
     kernels += time_model_kernels(ref, fa, ssd, dev, rates, launches, errs)
+    for k in kernels:   # training runs K3 in bf16 only
+        on_path = k["name"] == "ssd_intra_chunk" or (
+            k["name"] == "flash_attention" and k["dtype"] == "bfloat16")
+        k["launches_train"] = (train_launches[k["name"]] if on_path
+                               else {arch: 0 for arch, _ in TRAIN_ARCHS})
     emit({"phase": "run", "run_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)

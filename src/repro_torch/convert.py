@@ -13,7 +13,10 @@ dtype where numpy has one, else the torch dtype.
 
 ``params_from_reference`` loads the JAX package's parameter tree (as host
 arrays) into the port's model of the same config, so both packages compute
-the same function in the tests.
+the same function in the tests; ``params_to_reference`` is its inverse.
+``train_state_from_reference``/``train_state_to_reference`` do the same
+for a whole training state ``(params, OptState(step, m, v), rng)``, so a
+checkpoint of either package's ``TrainState`` resumes in the other.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import torch
 
 __all__ = ["dtype_name", "as_dtype", "host_dtype", "torch_dtype",
            "tensor_from_numpy", "numpy_from_tensor", "host_copy",
-           "file_from_numpy", "params_from_reference"]
+           "file_from_numpy", "params_from_reference", "params_to_reference",
+           "train_state_from_reference", "train_state_to_reference"]
 
 _BF16 = "bfloat16"
 
@@ -113,6 +117,90 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
+def _unstack(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference's nested, layer-stacked tree as ``{port name: array}``:
+    slice i of ``layers/<path>`` becomes ``layers.<i>.<path>``."""
+    arrays: Dict[str, Any] = {}
+    for name, a in _flatten(tree):
+        if name.startswith("layers."):
+            for i in range(np.shape(a)[0]):
+                arrays[f"layers.{i}.{name[len('layers.'):]}"] = a[i]
+        else:
+            arrays[name] = a
+    return arrays
+
+
+def _stack(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """``{port name: tensor}`` as the reference's nested, layer-stacked tree
+    of CPU tensors (the inverse of ``_unstack``)."""
+    layers: Dict[str, Dict[int, torch.Tensor]] = {}
+    flat: Dict[str, torch.Tensor] = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        t = t.detach().cpu()
+        if len(parts) > 2 and parts[0] == "layers" and parts[1].isdigit():
+            layers.setdefault(".".join(parts[2:]), {})[int(parts[1])] = t
+        else:
+            flat[name] = t
+    for name, by_layer in layers.items():
+        flat[f"layers.{name}"] = torch.stack(
+            [by_layer[i] for i in range(len(by_layer))])
+    tree: Dict[str, Any] = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return tree
+
+
+def params_to_reference(model: Any) -> Dict[str, Any]:
+    """The reference's parameter tree of ``model``: nested dicts of CPU
+    tensors, the layers stacked along a leading axis (``layers.<i>.<path>``
+    back to slice i of ``layers/<path>``).  ``numpy_from_tensor`` gives
+    host arrays (bfloat16 as its bit pattern)."""
+    return _stack(dict(model.named_parameters()))
+
+
+def train_state_to_reference(state: Any) -> Any:
+    """``TrainState(params, OptState(step, m, v), rng)`` in the reference's
+    layout (the port's ``TrainState``/``OptState`` named tuples, whose
+    checkpoint keys and tree structure are the reference's): parameters
+    and moments as ``params_to_reference`` gives them, ``step`` a 0-d int32
+    CPU tensor, ``rng`` a uint32[2] array."""
+    from .train.optim import OptState
+    from .train.trainer import TrainState
+
+    model, opt, rng = state
+    return TrainState(params=params_to_reference(model),
+                      opt=OptState(step=opt.step.detach().cpu(),
+                                   m=_stack(opt.m), v=_stack(opt.v)),
+                      rng=np.asarray(rng, np.uint32))
+
+
+def train_state_from_reference(cfg: Any, state: Any, device: Any = None) -> Any:
+    """The port's ``TrainState`` on ``device`` from a training state in the
+    reference's layout: the JAX package's ``TrainState`` as host arrays, or
+    what ``load_pytree`` restores into ``train_state_to_reference``'s
+    structure.  The moments keep their stored dtype."""
+    from .train.optim import OptState
+    from .train.trainer import TrainState
+
+    params, (step, m, v), rng = state
+    model = params_from_reference(cfg, params, device)
+    dev = next(model.parameters()).device
+
+    def moments(tree):
+        return {n: _tensor(a, dev) for n, a in _unstack(tree).items()}
+
+    return TrainState(
+        params=model,
+        opt=OptState(step=_tensor(step, dev).to(torch.int32),
+                     m=moments(m), v=moments(v)),
+        rng=np.asarray(rng, np.uint32))
+
+
 def params_from_reference(cfg: Any, tree: Mapping[str, Any], device: Any = None):
     """The port's model of ``cfg`` on ``device`` holding the reference's
     parameters ``tree`` (nested dicts of host arrays, as
@@ -126,13 +214,7 @@ def params_from_reference(cfg: Any, tree: Mapping[str, Any], device: Any = None)
     from .models.registry import get_family
 
     model = get_family(cfg).model(cfg, device)
-    arrays: Dict[str, Any] = {}
-    for name, a in _flatten(tree):
-        if name.startswith("layers."):
-            for i in range(np.shape(a)[0]):
-                arrays[f"layers.{i}.{name[len('layers.'):]}"] = a[i]
-        else:
-            arrays[name] = a
+    arrays = _unstack(tree)
     params = dict(model.named_parameters())
     if set(arrays) != set(params):
         raise KeyError(f"parameter names differ: missing "
@@ -140,9 +222,16 @@ def params_from_reference(cfg: Any, tree: Mapping[str, Any], device: Any = None)
                        f"{sorted(set(arrays) - set(params))}")
     with torch.no_grad():
         for name, p in params.items():
-            t = tensor_from_numpy(arrays[name], p.device)
+            t = _tensor(arrays[name], p.device)
             if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
                 raise ValueError(f"{name}: reference {tuple(t.shape)} "
                                  f"{t.dtype}, port {tuple(p.shape)} {p.dtype}")
             p.copy_(t)
     return model
+
+
+def _tensor(a: Any, device: Any) -> torch.Tensor:
+    """``a`` (a host array or a CPU tensor) as a tensor on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device)
+    return tensor_from_numpy(a, device)

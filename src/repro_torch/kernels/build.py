@@ -27,7 +27,8 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence
 from ..analysis.lockcheck import make_lock
 
 __all__ = ["NVCC_FLAGS", "source_path", "library_path", "build", "build_all",
-           "load", "count", "launch_counts", "reset_launch_counts"]
+           "load", "count", "launch_counts", "reset_launch_counts",
+           "refuse_grad"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -59,6 +60,16 @@ def reset_launch_counts(names: Optional[Iterable[str]] = None) -> None:
     with _count_lock:
         for n in (list(_launches) if names is None else names):
             _launches[n] = 0
+
+
+def refuse_grad(name: str, tensors: Iterable[Any]) -> None:
+    """Raise when an input of raw kernel ``name`` requires a gradient: a
+    kernel has no backward, ``kernels.ops`` differentiates it."""
+    if any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad; the raw kernel has no backward "
+            f"-- kernels.ops differentiates it (its backward recomputes in "
+            f"plain torch)")
 
 
 def _nvcc() -> str:

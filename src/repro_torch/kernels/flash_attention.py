@@ -44,16 +44,12 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Raise on a call the kernel does not serve: q (B, Sq, H, D) and k/v
     (B, Sk, KV, D) of one dtype (float32 or bfloat16) on one device, H a
     multiple of KV, D a multiple of 16 up to 128, no input that requires a
-    gradient (the backward is not ported yet)."""
+    gradient (``ops.flash_attention`` detaches them for the kernel)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be a 4-D tensor "
                              f"(B, S, heads, D)")
-        if t.requires_grad:
-            raise RuntimeError(
-                "flash_attention: an input requires grad; the kernel has no "
-                "backward yet (ROADMAP Queue 2, training slice) -- run "
-                "inference under torch.no_grad()")
+    _build.refuse_grad(NAME, (q, k, v))
     if k.shape != v.shape:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} differ")
@@ -95,6 +91,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         raise ValueError(f"flash_attention launches on CUDA tensors only, "
                          f"got {q.device}")
+    _build.refuse_grad(NAME, (q, k, v))
     q, k, v = (_kernel_layout(t) for t in (q, k, v))
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]

@@ -38,15 +38,12 @@ def check_args(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
                Cm: torch.Tensor) -> None:
     """Raise on a call the kernel does not serve: x (B,NC,q,H,P), dA
     (B,NC,q,H), Bm/Cm (B,NC,q,G,N) on one device, H a multiple of G, P and N
-    in [1, 128], no input that requires a gradient."""
+    in [1, 128], no input that requires a gradient (``ops.ssd_chunked_kernel``
+    detaches them for the kernel)."""
     for name, t, nd in (("x", x, 5), ("dA", dA, 4), ("Bm", Bm, 5), ("Cm", Cm, 5)):
         if not isinstance(t, torch.Tensor) or t.dim() != nd:
             raise ValueError(f"ssd_intra_chunk: {name} must be a {nd}-D tensor")
-        if t.requires_grad:
-            raise RuntimeError(
-                "ssd_intra_chunk: an input requires grad; the kernel has no "
-                "backward yet (ROADMAP Queue 2, training slice) -- run "
-                "inference under torch.no_grad()")
+    _build.refuse_grad(NAME, (x, dA, Bm, Cm))
     b, nc, q, h, p = x.shape
     if tuple(dA.shape) != (b, nc, q, h):
         raise ValueError(f"ssd_intra_chunk: dA {tuple(dA.shape)} does not match "
@@ -72,6 +69,7 @@ def ssd_intra_chunk(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     if not x.is_cuda:
         raise ValueError(f"ssd_intra_chunk launches on CUDA tensors only, "
                          f"got {x.device}")
+    _build.refuse_grad(NAME, (x, dA, Bm, Cm))
     x, dA, Bm, Cm = (t.float().contiguous() for t in (x, dA, Bm, Cm))
     b, nc, q, h, p = x.shape
     g, n = Bm.shape[3], Bm.shape[4]

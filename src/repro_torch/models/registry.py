@@ -3,9 +3,10 @@
 
 ``get_family(cfg)`` returns a ``Family`` with ``model(cfg, device)`` (the
 module, parameters uninitialised), ``init(cfg, generator, device)``,
-``init_cache(cfg, batch, max_len, dtype, device)``, ``prefill(model, cfg,
-batch, cache)`` and ``decode_step(model, cfg, token, cache)``, so the
-serving engine is family-agnostic.  The dense and ssm families are ported;
+``loss_fn(model, cfg, batch)``, ``init_cache(cfg, batch, max_len, dtype,
+device)``, ``prefill(model, cfg, batch, cache)`` and ``decode_step(model,
+cfg, token, cache)``, so the trainer and the serving engine are
+family-agnostic.  The dense and ssm families are ported;
 the others raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -24,6 +25,7 @@ class Family:
     name: str
     model: Callable
     init: Callable
+    loss_fn: Callable
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
@@ -39,10 +41,10 @@ def _ssm_prefill(model, cfg, batch, cache):
 
 _FAMILIES: Dict[str, Family] = {
     "dense": Family("dense", transformer.Transformer, transformer.init,
-                    transformer.init_cache, _tfm_prefill,
+                    transformer.loss_fn, transformer.init_cache, _tfm_prefill,
                     transformer.decode_step),
-    "ssm": Family("ssm", ssm.MambaLM, ssm.init, ssm.init_cache, _ssm_prefill,
-                  ssm.decode_step),
+    "ssm": Family("ssm", ssm.MambaLM, ssm.init, ssm.loss_fn, ssm.init_cache,
+                  _ssm_prefill, ssm.decode_step),
 }
 
 _NOT_YET = {

@@ -11,7 +11,9 @@ width - 1 positions.
 Layers are an ``nn.ModuleList``; parameter ``layers.<i>.<name>`` is slice i
 of the reference's stacked ``layers/<name>``.  The cache keeps the
 reference's stacked layout, ``conv`` (L, B, W-1, C) and ``ssm`` (L, B, H,
-N, P) float32, and is updated in place.
+N, P) float32, and is updated in place.  Under autograd each layer runs
+under the config's ``remat`` policy (``layers.remat``); the K4 scan is
+differentiable (``kernels.ops.ssd_chunked_kernel``).
 """
 
 from __future__ import annotations
@@ -26,10 +28,10 @@ from torch import nn
 from ..convert import torch_dtype
 from ..kernels import ops as kops
 from . import layers as L
-from .transformer import check_remat
 
 __all__ = ["segsum", "ssd_chunked", "ssd_decode_step", "Mamba", "MambaLM",
-           "init", "forward", "init_cache", "prefill", "decode_step"]
+           "init", "forward", "loss_fn", "init_cache", "prefill",
+           "decode_step"]
 
 Cache = Dict[str, torch.Tensor]
 
@@ -251,14 +253,21 @@ def init(cfg, generator: Optional[torch.Generator] = None,
 def forward(model: MambaLM, cfg, tokens: torch.Tensor,
             cache: Optional[Cache] = None
             ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    check_remat(cfg)
     h = L.embed_lookup(model.embed, tokens)
     for i, layer in enumerate(model.layers):
-        lc = None
-        if cache is not None:
-            lc = {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
-        h, _ = layer(h, cfg, lc)
+        if cache is None:
+            h = L.remat(cfg.remat, lambda x, f=layer: f(x, cfg)[0], h)
+            continue
+        h, _ = layer(h, cfg, {"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
     return model.ln_f(h), cache
+
+
+def loss_fn(model: MambaLM, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """batch: tokens (B, S), labels (B, S) -> the mean token cross entropy
+    (ssm.py:283-285)."""
+    h, _ = forward(model, cfg, batch["tokens"])
+    return L.chunked_cross_entropy(h, model.embed, batch["labels"],
+                                   cfg.loss_chunk)
 
 
 def init_cache(cfg, batch: int, max_len: int = 0, dtype=torch.bfloat16,

@@ -8,9 +8,10 @@ here they are an ``nn.ModuleList`` walked by a Python loop, and parameter
 KV, hd) for ``k`` and ``v`` and (L,) int32 for ``len``, and is updated in
 place.
 
-Public surface (as the reference's): ``init``, ``forward``, ``init_cache``,
-``prefill``, ``decode_step``.  MoE layers, a vision prefix and
-rematerialisation under autograd are not ported yet and raise.
+Public surface (as the reference's): ``init``, ``forward``, ``loss_fn``,
+``init_cache``, ``prefill``, ``decode_step``.  Under autograd each layer
+runs under the config's ``remat`` policy (``layers.remat``).  MoE layers
+and a vision prefix are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from torch import nn
 from ..convert import torch_dtype
 from . import layers as L
 
-__all__ = ["Transformer", "init", "forward", "init_cache", "prefill",
-           "decode_step"]
+__all__ = ["Transformer", "init", "forward", "loss_fn", "init_cache",
+           "prefill", "decode_step"]
 
 Cache = Dict[str, torch.Tensor]
 
@@ -41,16 +42,6 @@ def check_config(cfg) -> None:
             "(ROADMAP Queue 1 item 9)")
     if cfg.family != "dense":
         raise ValueError(f"not a dense config: family {cfg.family!r}")
-
-
-def check_remat(cfg) -> None:
-    """``remat`` is the reference's training memory policy; it does not
-    change a forward pass, so inference (no autograd) ignores it."""
-    if cfg.remat != "none" and torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} under autograd is training, which is not "
-            f"ported yet (ROADMAP Queue 1 item 11); run inference under "
-            f"torch.no_grad()")
 
 
 class DenseLayer(nn.Module):
@@ -103,7 +94,6 @@ def forward(model: Transformer, cfg, tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
     """Returns (hidden (B, S, d) after the final norm, aux loss (0 for the
     dense family), the cache with its new lengths)."""
-    check_remat(cfg)
     h = L.embed_lookup(model.embed, tokens)
     b, s, _ = h.shape
     if positions is None:
@@ -111,17 +101,30 @@ def forward(model: Transformer, cfg, tokens: torch.Tensor,
                                  device=h.device).expand(b, s)
     lens = []
     for i, layer in enumerate(model.layers):
-        lc = None
-        if cache is not None:
-            lc = {"k": cache["k"][i], "v": cache["v"][i], "len": cache["len"][i]}
+        if cache is None:
+            h = L.remat(cfg.remat, lambda x, f=layer: f(x, positions, cfg)[0], h)
+            continue
+        lc = {"k": cache["k"][i], "v": cache["v"][i], "len": cache["len"][i]}
         h, nc = layer(h, positions, cfg, lc)
-        if nc is not None:
-            lens.append(nc["len"])
+        lens.append(nc["len"])
     new_cache = None
     if cache is not None:
         new_cache = {"k": cache["k"], "v": cache["v"], "len": torch.stack(lens)}
     h = model.ln_f(h)
     return h, torch.zeros((), dtype=torch.float32, device=h.device), new_cache
+
+
+def loss_fn(model: Transformer, cfg, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """batch: tokens (B, S), labels (B, S) -> the mean token cross entropy
+    plus 0.01 x the aux loss (transformer.py:153-161)."""
+    if batch.get("vision_embeds") is not None:
+        raise NotImplementedError("the vision prefix (vlm) is not ported yet "
+                                  "(ROADMAP Queue 1 item 9)")
+    h, aux, _ = forward(model, cfg, batch["tokens"])
+    loss = L.chunked_cross_entropy(h, model.embed, batch["labels"],
+                                   cfg.loss_chunk)
+    return loss + 0.01 * aux
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -33,7 +33,7 @@ def default_device(device: Any = None) -> torch.device:
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available: the engine runs on cuda:0; "
+        raise RuntimeError("CUDA is not available: the port runs on cuda:0; "
                            "pass device=torch.device('cpu') to run on the CPU")
     return torch.device("cuda", 0)
 

@@ -12,9 +12,11 @@ checkpoints: an 8-byte little-endian header length, a JSON meta with
 ``np.savez`` arrays ``a0, a1, ...`` in leaf order.
 
 * **Keys and leaf order** follow ``jax.tree_util``: dicts flatten in sorted
-  key order (``"['acc']"``), lists and tuples by position (``"[0]"``),
-  ``None`` is an empty subtree, anything else is a leaf; path parts are
-  joined by ``/``.  ``load_pytree`` matches leaves by position and the
+  key order (``"['acc']"``), named tuples by field (``".opt"``, the tree
+  structure ``CustomNode(namedtuple[OptState], [...])``), lists and tuples
+  by position (``"[0]"``), ``None`` is an empty subtree, anything else is a
+  leaf; path parts are joined by ``/`` (a ``TrainState``'s step is
+  ``".opt/.step"``).  ``load_pytree`` matches leaves by position and the
   rescale surgery parses the keys, so a differing order would restore the
   wrong leaves without an error.
 * **Tensors.**  ``AsyncCheckpointer.save`` snapshots every tensor leaf into
@@ -60,10 +62,16 @@ _BF16 = "bfloat16"
 # ---------------------------------------------------------------------------
 # pytrees of dicts, lists and tuples, flattened as jax.tree_util does
 # ---------------------------------------------------------------------------
+def _is_namedtuple(node: Any) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
 def _children(node: Any) -> Optional[List[Tuple[str, Any]]]:
     """(path part, child) pairs of a container, or None for a leaf."""
     if isinstance(node, dict):
         return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+    if _is_namedtuple(node):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
     if isinstance(node, (list, tuple)):
         return [(f"[{i}]", c) for i, c in enumerate(node)]
     return None
@@ -90,6 +98,9 @@ def _treedef_str(tree: Any) -> str:
         if isinstance(node, dict):
             return "{" + ", ".join(f"{k!r}: {walk(node[k])}"
                                    for k in sorted(node)) + "}"
+        if _is_namedtuple(node):
+            inner = ", ".join(walk(c) for c in node)
+            return f"CustomNode(namedtuple[{type(node).__name__}], [{inner}])"
         if isinstance(node, list):
             return "[" + ", ".join(walk(c) for c in node) + "]"
         if isinstance(node, tuple):
@@ -104,6 +115,8 @@ def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
         return None
     if isinstance(tree, dict):
         return {k: _tree_map(fn, tree[k]) for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_tree_map(fn, c) for c in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_map(fn, c) for c in tree)
     return fn(tree)

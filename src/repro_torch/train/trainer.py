@@ -1,0 +1,143 @@
+"""Family-agnostic training step: loss -> grad -> (accumulate) -> AdamW
+(``src/repro/train/trainer.py``).
+
+``make_train_step`` builds ``train_step(state, batch)`` for any ported
+arch config.  The reference jits the step and donates the old state; here
+the step runs eagerly on the state's device and updates the model's
+parameters and the moments in place (at full width a second copy of the
+state would not fit on the card), returning the same objects in a new
+``TrainState``.
+
+Microbatch gradient accumulation (``accum_steps``) runs the microbatches
+one after another and updates the weights once per global batch, the
+accumulator in the optimizer-state dtype.  Optional int8 gradient
+compression (``compress_grads``): each microbatch's gradient is quantized
+per leaf (symmetric, absmax scale) before it enters the accumulator, with
+an error-feedback residual folded into the next microbatch, as in the
+reference; a leaf is the reference's, so the layers of a stacked leaf
+share one scale.  The reference's ZeRO hint (``constrain`` of the gradients to
+the parameter layout) is the identity on one device and is left out;
+``state_specs`` waits for the sharding modules (ROADMAP Queue 1 item 12).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.registry import get_family
+from ..serve.engine import default_device
+from .optim import (AdamWConfig, OptState, adamw_init, adamw_update,
+                    reference_order)
+
+__all__ = ["TrainState", "make_train_step", "init_state"]
+
+
+class TrainState(NamedTuple):
+    params: Any          # the model (an nn.Module of the config's family)
+    opt: OptState
+    rng: np.ndarray      # uint32[2], the reference's PRNGKey(0)
+
+
+def init_state(generator: Optional[torch.Generator], cfg,
+               opt_cfg: Optional[AdamWConfig] = None, device=None) -> TrainState:
+    """A model of ``cfg`` drawn from ``generator`` on ``device`` (default
+    ``cuda:0``, raising without CUDA) and zero AdamW moments."""
+    opt_cfg = opt_cfg or AdamWConfig(state_dtype=cfg.opt_state_dtype)
+    device = default_device(device)
+    model = get_family(cfg).init(cfg, generator, device)
+    return TrainState(params=model, opt=adamw_init(model, opt_cfg),
+                      rng=np.zeros(2, np.uint32))
+
+
+# ----------------------------------------------------------- int8 compression
+def _quantize(g: torch.Tensor, absmax: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 with the scale of ``absmax`` (default: ``g``'s own);
+    the reference quantizes a stacked leaf with one scale for all its
+    layers, so a layer's tensor is given the leaf's absmax."""
+    if absmax is None:
+        absmax = torch.max(torch.abs(g))
+    scale = absmax / 127.0 + 1e-12
+    # torch.round, like jnp.round, rounds half to even
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def _accumulate_compressed(gsum, err, grads, acc_dt) -> None:
+    """Add the int8 round trip of ``grads`` plus the carried error to
+    ``gsum``, and keep the new error: per reference leaf, so the layers of
+    one stacked leaf share its scale."""
+    for group in reference_order(grads):
+        full = {n: grads[n].float() + err[n] for n in group}
+        absmax = torch.max(torch.stack([f.abs().max() for f in full.values()]))
+        for n, f in full.items():
+            deq = _dequantize(*_quantize(f, absmax))
+            gsum[n] = gsum[n] + deq.to(acc_dt)
+            err[n] = f - deq
+
+
+def make_train_step(
+    cfg,
+    opt_cfg: Optional[AdamWConfig] = None,
+    accum_steps: int = 1,
+    compress_grads: bool = False,
+) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, Dict]]:
+    """Build train_step(state, batch) -> (new_state, metrics).
+
+    batch leaves (tensors or host arrays) have leading dim = global_batch;
+    with accum_steps > 1 the leading dim must divide into ``accum_steps``
+    microbatches.  Metrics are 0-d float32 tensors: ``loss``, ``lr``,
+    ``grad_norm``."""
+    opt_cfg = opt_cfg or AdamWConfig(state_dtype=cfg.opt_state_dtype)
+    loss_fn = get_family(cfg).loss_fn
+
+    def grads_of(model, batch):
+        names, params = zip(*model.named_parameters())
+        loss = loss_fn(model, cfg, batch)
+        grads = torch.autograd.grad(loss, params)
+        return loss.detach(), dict(zip(names, grads))
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        model = state.params
+        dev = next(model.parameters()).device
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+        if accum_steps == 1:
+            loss, grads = grads_of(model, batch)
+        else:
+            micro = [{k: v.reshape((accum_steps, v.shape[0] // accum_steps)
+                                   + tuple(v.shape[1:]))[i]
+                      for k, v in batch.items()} for i in range(accum_steps)]
+            # accumulate in the optimizer-state dtype, as the reference does
+            acc_dt = getattr(torch, opt_cfg.state_dtype)
+            gsum = {n: torch.zeros(p.shape, dtype=acc_dt, device=dev)
+                    for n, p in model.named_parameters()}
+            err = ({n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                    for n, p in model.named_parameters()}
+                   if compress_grads else None)
+            losses = []
+            for mb in micro:
+                l, g = grads_of(model, mb)
+                losses.append(l)
+                with torch.no_grad():
+                    if err is None:
+                        for n, gg in g.items():
+                            gsum[n] = gsum[n] + gg.to(acc_dt)
+                    else:
+                        _accumulate_compressed(gsum, err, g, acc_dt)
+                del g
+            grads = {n: a / accum_steps for n, a in gsum.items()}
+            loss = torch.mean(torch.stack(losses))
+
+        _, new_opt, om = adamw_update(model, grads, state.opt, opt_cfg)
+        metrics = {"loss": loss, **om}
+        return TrainState(model, new_opt, state.rng), metrics
+
+    return train_step

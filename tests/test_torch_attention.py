@@ -1,7 +1,8 @@
 """K3: the port's ``ops.flash_attention`` against the JAX package's
 ``ops.flash_attention`` (its Pallas kernel in interpret mode on the CPU),
 over the cases of ``tests/test_kernels.py`` at its tolerances (float32
-3e-5, bfloat16 3e-2).  Inputs are seeded numpy; on the CPU the port runs
+3e-5, bfloat16 3e-2, gradients 2e-4), and the plain blockwise attention
+of the backward (``models.layers.blockwise_attention``) at 2e-5.  Inputs are seeded numpy; on the CPU the port runs
 its plain version, and the same checks guard the kernel's wrapper."""
 
 import numpy as np
@@ -9,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -78,8 +80,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_serve():
         ops.flash_attention(q[:, :, :3], k, v)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.flash_attention(q.double(), k.double(), v.double())
+    # the raw kernel has no backward: its checks and launcher refuse an
+    # input that requires grad; the public wrapper differentiates instead
     with pytest.raises(RuntimeError, match="requires grad"):
-        ops.flash_attention(q.requires_grad_(), k, v)
+        fa.check_args(q.requires_grad_(), k, v, 0)
+    assert ops.flash_attention(q, k, v).grad_fn is not None
 
 
 def test_no_fallback_off_the_card():
@@ -129,4 +134,83 @@ def test_fused_qkv_views_match_jax():
     t = torch.from_numpy(fused)
     got = ops.flash_attention(t[:, :, :h], t[:, :, h:h + kv], t[:, :, h + kv:],
                               causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=3e-5)
+
+
+# ------------------------------------------------------------- gradients
+def _grads_of_sum_sq(fn, arrays):
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    return torch.autograd.grad((fn(*ts) ** 2).sum(), ts)
+
+
+def _jax_grads_of_sum_sq(fn, arrays):
+    return jax.grad(lambda *a: jnp.sum(fn(*a) ** 2), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in arrays))
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,bq,bk,kw", [
+    (1, 128, 2, 2, 32, 64, 64, {"causal": True}),                 # MHA
+    (1, 100, 6, 2, 64, 32, 64, {"causal": True}),                 # rep 3, ragged
+    (2, 96, 4, 1, 16, 32, 32, {"causal": True, "window": 40}),    # MQA, window
+    (1, 80, 4, 2, 32, 64, 32, {"causal": False}),
+])
+def test_flash_attention_grads_match_jax(b, s, h, kv, d, bq, bk, kw):
+    """K3's autograd Function (plain forward on the CPU, blockwise
+    recompute in the backward with chunks block_q/block_k) against the
+    reference's custom VJP, the Pallas forward in interpret mode; the
+    gradients of sum(out^2) at 2e-4 (``tests/test_kernels.py:53-65``)."""
+    arrays = _qkv(s * 7 + d, b, s, h, kv, d)
+    got = _grads_of_sum_sq(lambda q, k, v: ops.flash_attention(
+        q, k, v, block_q=bq, block_k=bk, **kw), arrays)
+    want = _jax_grads_of_sum_sq(lambda q, k, v: jops.flash_attention(
+        q, k, v, block_q=bq, block_k=bk, **kw), arrays)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-4, rtol=2e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("kw,qc,kc", [
+    ({"causal": True}, 32, 48),                  # ragged chunks both ways
+    ({"causal": True, "window": 30}, 16, 16),    # skips stale key chunks
+    ({"causal": False}, 40, 24),
+    ({"causal": False, "window": 25}, 24, 40),
+])
+def test_blockwise_attention_and_its_grads_match_jax(kw, qc, kc):
+    """The plain blockwise attention (GQA rep 3, S = 100 in chunks that do
+    not divide it) and its gradients against the reference's at 2e-5."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as L
+
+    arrays = _qkv(21, 2, 100, 6, 2, 32)
+    fn = lambda m: lambda q, k, v: m.blockwise_attention(  # noqa: E731
+        q, k, v, q_chunk=qc, k_chunk=kc, **kw)
+    out = L.blockwise_attention(*map(torch.from_numpy, arrays), q_chunk=qc,
+                                k_chunk=kc, **kw)
+    want = JL.blockwise_attention(*map(jnp.asarray, arrays), q_chunk=qc,
+                                  k_chunk=kc, **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+    got = _grads_of_sum_sq(fn(L), arrays)
+    wantg = _jax_grads_of_sum_sq(fn(JL), arrays)
+    for name, g, w in zip("qkv", got, wantg):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=2e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("use_flash,attn_chunk", [(True, 64), (False, 16),
+                                                  (False, 64)],
+                         ids=["kernel", "blockwise", "plain"])
+def test_attend_dispatches_as_the_reference(use_flash, attn_chunk):
+    from repro.configs import get_config as j_get_config
+    from repro.models import layers as JL
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    over = dict(use_flash=use_flash, attn_chunk=attn_chunk)
+    arrays = _qkv(22, 1, 40, 4, 2, 32)
+    got = L.attend(*map(torch.from_numpy, arrays),
+                   get_config("llama3.2-3b", reduced=True).replace(**over),
+                   causal=True, window=9)
+    want = JL.attend(*map(jnp.asarray, arrays),
+                     j_get_config("llama3.2-3b", reduced=True).replace(**over),
+                     causal=True, window=9)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=3e-5)

@@ -21,6 +21,7 @@ from repro_torch.core.datamodel import (BlockOwnership,  # noqa: E402
                                         reset_transport_stats, transport_stats)
 from repro_torch.core.redistribute import even_blocks  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -185,8 +186,6 @@ def test_flash_attention_reads_fused_views_in_place(cuda):
     D stride and 16-byte strides: the kernel reads them without a copy.  A
     view whose pointer is off the 16-byte grid is copied first; both agree
     with the plain version."""
-    from repro_torch.kernels import flash_attention as fa
-
     b, s, h, kv, d = 2, 333, 6, 2, 64
     g = torch.Generator(device=cuda).manual_seed(3)
     fused = torch.randn((b, s, h + 2 * kv, d), generator=g, device=cuda).to(
@@ -259,8 +258,8 @@ def test_ssd_chunked_kernel_matches_plain_scan(cuda, b, s, h, p, g, n, chunk,
 
 def test_model_kernel_wrappers_check_cuda_inputs(cuda):
     q = torch.zeros((1, 8, 2, 16), device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="requires grad"):
-        ops.flash_attention(q, q.detach(), q.detach())
+    with pytest.raises(RuntimeError, match="requires grad"):   # raw launcher
+        fa.flash_attention(q, q.detach(), q.detach(), True, 0)
     with pytest.raises(ValueError, match="multiple of 16"):
         z = torch.zeros((1, 8, 2, 24), device=cuda)
         ops.flash_attention(z, z, z)
@@ -398,3 +397,88 @@ tasks:
     assert kinds == {"cuda"}
     assert torch.equal(counts, ref_counts)
     assert launches["pack_blocks"] == blocks > 0
+
+
+# ---------------------------------------------------------- training slice
+def _grad_close(got, want):
+    """2e-4 relative, and absolute on the scale of the gradient's largest
+    entry (``tests/test_torch_ssd.py``)."""
+    for g, w in zip(got, want):
+        atol = 2e-4 * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g, w, atol=atol, rtol=2e-4)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,window", [
+    (1, 2048, 24, 8, 128, 0),     # the serving and training shape
+    (2, 333, 8, 1, 64, 100),      # MQA, window, ragged
+])
+def test_flash_attention_function_grads_match_plain(cuda, b, s, h, kv, d, window):
+    """K3 under autograd on the card: the forward launches the kernel once,
+    the backward recomputes in plain torch; the gradients of sum(out^2)
+    equal autograd through the plain op at 2e-4 in float32."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ins = [torch.randn(shape, generator=g, device=cuda)
+           for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+    a = [t.clone().requires_grad_() for t in ins]
+    r = [t.clone().requires_grad_() for t in ins]
+    build.reset_launch_counts(["flash_attention"])
+    out = ops.flash_attention(*a, causal=True, window=window)
+    got = torch.autograd.grad((out ** 2).sum(), a)
+    torch.cuda.synchronize()
+    assert build.launch_counts(["flash_attention"])["flash_attention"] == 1
+    want = torch.autograd.grad(
+        (ref.flash_attention_ref(*r, causal=True, window=window) ** 2).sum(), r)
+    _grad_close(got, want)
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "state"])
+def test_ssd_function_grads_match_plain(cuda, with_state):
+    """The scan around K4 under autograd on the card at S = 2048 (the
+    training shape's heads): one launch, gradients of sum(y^2) equal to
+    autograd through the plain ``ssd_chunked`` at 2e-4."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    x, dA, Bm, Cm, s0 = _ssd_inputs(cuda, 1, 2048, 80, 64, 1, 128, 9)
+    ins = [x, dA, Bm, Cm] + ([s0] if with_state else [])
+    a = [t.clone().requires_grad_() for t in ins]
+    r = [t.clone().requires_grad_() for t in ins]
+    build.reset_launch_counts(["ssd_intra_chunk"])
+    y, _ = ops.ssd_chunked_kernel(*a[:4], chunk=256,
+                                  initial_state=a[4] if with_state else None)
+    got = torch.autograd.grad((y ** 2).sum(), a)
+    torch.cuda.synchronize()
+    assert build.launch_counts(["ssd_intra_chunk"])["ssd_intra_chunk"] == 1
+    y_ref, _ = ssd_chunked(*r[:4], chunk=256,
+                           initial_state=r[4] if with_state else None)
+    _grad_close(got, torch.autograd.grad((y_ref ** 2).sum(), r))
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-2.7b"])
+def test_two_layer_train_step_on_the_card_counts_its_launches(cuda, arch):
+    """bf16, ``remat="full"``, ``use_flash``: a training step launches its
+    kernel twice per layer (the forward and the checkpoint's recompute),
+    and the loss falls over 4 steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticCorpus,
+                                   init_state, make_train_step)
+
+    cfg = get_config(arch).replace(n_layers=2, vocab=1024, use_flash=True)
+    if arch == "llama3.2-3b":
+        cfg = cfg.replace(d_model=512, n_heads=8, n_kv_heads=2, d_ff=1024)
+        name = "flash_attention"
+    else:
+        cfg = cfg.replace(d_model=256)
+        name = "ssd_intra_chunk"
+    assert cfg.remat == "full" and cfg.dtype == "bfloat16"
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    state = init_state(torch.Generator(device=cuda).manual_seed(0), cfg, ocfg, cuda)
+    step = make_train_step(cfg, ocfg)
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                        global_batch=2))
+    losses = []
+    for i in range(4):
+        build.reset_launch_counts([name])
+        state, m = step(state, corpus.batch(i))
+        losses.append(float(m["loss"]))
+        assert build.launch_counts([name])[name] == 2 * cfg.n_layers
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -1,7 +1,8 @@
 """The port's examples run to their end on the CPU (``--device cpu``), their
 own asserts included: halo counts identical to a crash-free run after
-restarts, a drop, a policy rescale and a watchdog rescale, and a traced run
-that exports all six span layers."""
+restarts, a drop, a policy rescale and a watchdog rescale, a traced run
+that exports all six span layers, and a trainer coupled in situ to an
+evaluator whose held-out loss must not diverge."""
 
 import os
 import runpy
@@ -17,11 +18,13 @@ EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 @pytest.mark.parametrize("name", [
     "torch_quickstart", "torch_cosmology_flowcontrol",
     "torch_cosmology_faulttolerant", "torch_cosmology_elastic",
-    "torch_cosmology_traced"])
+    "torch_cosmology_traced", "torch_train_insitu_eval"])
 def test_example_runs_on_the_cpu(name, tmp_path, monkeypatch, capsys):
     argv = [name, "--device", "cpu"]
     if name == "torch_cosmology_traced":
         argv += ["--trace", str(tmp_path / "trace.json")]
+    if name == "torch_train_insitu_eval":  # the demo model, two evaluations
+        argv += ["--steps", "20"]
     monkeypatch.setattr(sys, "argv", argv)
     runpy.run_path(os.path.join(EXAMPLES, f"{name}.py"), run_name="__main__")
     out = capsys.readouterr().out

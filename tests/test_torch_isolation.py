@@ -48,8 +48,11 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
         "repro_torch.models.registry",
         "repro_torch.serve", "repro_torch.serve.engine",
         "repro_torch.launch", "repro_torch.launch.serve",
+        "repro_torch.launch.train",
         "repro_torch.configs",
         "repro_torch.train", "repro_torch.train.checkpoint",
+        "repro_torch.train.data", "repro_torch.train.optim",
+        "repro_torch.train.trainer",
         "repro_torch.obs.__main__",
     } | {f"repro_torch.core.{m}" for m in (
         "scheduler", "datamodel", "redistribute", "comm", "recovery",

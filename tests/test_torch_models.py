@@ -122,15 +122,30 @@ def test_unported_families_name_their_roadmap_item(arch, match):
         get_family(get_config(arch, reduced=True))
 
 
-def test_remat_is_refused_under_autograd_only():
-    cfg = get_config("llama3.2-3b", reduced=True).replace(remat="full")
-    model = transformer.init(cfg, torch.Generator().manual_seed(0), CPU)
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        transformer.forward(model, cfg, tokens)
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-2.7b"])
+def test_remat_never_changes_a_value(arch, policy):
+    """``remat`` is a memory policy: under autograd the loss and every
+    gradient equal those without it, bit for bit on the CPU, with the
+    kernel path and the plain one; without autograd it is not used."""
+    base = get_config(arch, reduced=True).replace(loss_chunk=16)
+    fam = get_family(base)
+    model = fam.init(base, torch.Generator().manual_seed(0), CPU)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, base.vocab, (2, 33), dtype=np.int64))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for use_flash in (False, True):
+        out = {}
+        for remat in ("none", policy):
+            cfg = base.replace(remat=remat, use_flash=use_flash)
+            loss = fam.loss_fn(model, cfg, batch)
+            out[remat] = (loss, torch.autograd.grad(loss, list(model.parameters())))
+        (l0, g0), (l1, g1) = out["none"], out[policy]
+        assert torch.equal(l0, l1)
+        assert all(torch.equal(a, b) for a, b in zip(g0, g1))
     with torch.no_grad():
-        h, _, _ = transformer.forward(model, cfg, tokens)
-    assert h.shape == (1, 4, cfg.d_model)
+        assert torch.equal(fam.loss_fn(model, base.replace(remat=policy), batch),
+                           fam.loss_fn(model, base, batch))
 
 
 @pytest.mark.parametrize("arch,op", [("llama3.2-3b", "flash_attention"),

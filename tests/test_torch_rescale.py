@@ -147,9 +147,24 @@ class Pkg:
     def consumer(self, results, key, primary, extras=(), weights=(1.0,)):
         """Accumulate this instance's slab of every step; shard-checkpoint
         it.  The accumulator is sized from the instance's frozen
-        ``RedistSpec``, so the same body runs at any instance count."""
+        ``RedistSpec``, so the same body runs at any instance count.
+
+        A pure consumer whose body returned is launched again, in the same
+        incarnation (the same ``comm``), while any of its producers has not
+        yet marked its channel done (the query protocol, driver.py
+        ``_run_instance``).  Whether that relaunch happens is a race with
+        the producer's close in either package, and the relaunch restores
+        the last checkpoint and receives nothing; so the steps recorded for
+        an instance (and the payload types it saw) are those of every
+        launch of its final incarnation."""
+        launches = {}  # instance -> (comm, steps, kinds) of its incarnation
+
         def consumer():
             comm = self.core.world()
+            live = launches.get(comm.instance)
+            if live is None or live[0] is not comm:  # a new incarnation
+                live = launches[comm.instance] = (comm, [], set())
+            _, steps, kinds = live
             spec = comm.resolve_redist_spec(port=primary)
             _, shape = even_blocks((GLOBAL,), spec.nslots)[spec.slot]
             like = {"acc": self.zeros(shape, np.float64, comm),
@@ -161,7 +176,6 @@ class Pkg:
             acc = state["acc"].clone() if self.port \
                 else np.asarray(state["acc"]).copy()
             n = int(state["n"])
-            steps, kinds = [], set()
             while True:
                 f0 = self.core.h5.File(primary, "r")
                 if f0 is None:
@@ -206,8 +220,11 @@ def _output(w, results, key):
 
 
 def _summary(w, rep, results):
-    """What must agree across the packages."""
-    ev = lambda evs, ks: [{k: e[k] for k in ks} for e in evs]  # noqa: E731
+    """What must agree across the packages.  Events of different tasks
+    interleave as their threads run, so each list is ordered by task (a
+    stable sort: one task's events keep their order)."""
+    ev = lambda evs, ks: sorted(({k: e[k] for k in ks} for e in evs),  # noqa: E731
+                                key=lambda e: e["task"])
     return {
         "c1": _output(w, results, "c1").tobytes(),
         "c2": _output(w, results, "c2").tobytes(),
@@ -223,11 +240,25 @@ def _summary(w, rep, results):
 
 def _unpin(summary):
     """A spec without ``instance`` fires on whichever instance gets there
-    first, in either package: compare what does not depend on which."""
+    first, in either package: compare what does not depend on which.
+
+    The cut step is the newest checkpoint every old instance holds, so it
+    depends on how far the other instances had got when the fault fired;
+    under load it varies from run to run in either package.  Each resized
+    instance must have received exactly the steps after its own package's
+    cut; the cut and those steps are not compared across the packages."""
     out = dict(summary)
     out["restarts"] = [{k: v for k, v in e.items() if k != "instance"}
                        for e in summary["restarts"]]
-    out["steps"] = sorted(summary["steps"].values())
+    cuts = {e["task"]: e["cut_step"] for e in summary["rescales"]}
+    out["rescales"] = [{k: v for k, v in e.items() if k != "cut_step"}
+                       for e in summary["rescales"]]
+    for (task, j), steps in summary["steps"].items():
+        if task in cuts:
+            assert steps == list(range(cuts[task] + 1, STEPS)), \
+                f"{task}[{j}] got {steps} after cut {cuts[task]}"
+    out["steps"] = sorted(v for (task, _), v in summary["steps"].items()
+                          if task not in cuts)
     return out
 
 

@@ -2,7 +2,8 @@
 ``tests/test_kernels.py`` (ragged, G = 2, an initial state) at its 2e-4:
 ``ops.ssd_chunked_kernel`` against ``ops.ssd_chunked_pallas``, the
 intra-chunk step against the Pallas ``ssd_intra_chunk`` in interpret mode,
-and the plain ``models.ssm.ssd_chunked`` against the reference's.  Inputs
+the plain ``models.ssm.ssd_chunked`` against the reference's, and the
+scan's gradients against the reference's custom VJP.  Inputs
 are seeded numpy; on the CPU the port runs its plain versions."""
 
 import numpy as np
@@ -10,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -108,3 +110,35 @@ def test_cpu_path_counts_no_launch_and_wrappers_refuse():
         ssd_scan.ssd_intra_chunk(x.detach(), dA, Bm, Cm)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.ssd_intra_chunk(*(t.detach().to("meta") for t in (x, dA, Bm, Cm)))
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "state"])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [CASES[1], CASES[2], CASES[5]])
+def test_kernel_scan_grads_match_jax(b, s, h, p, g, n, chunk, with_state):
+    """The scan around K4 under autograd (its forward, the plain
+    ``ssd_chunked`` recomputed in the backward) against the reference's
+    ``ssd_chunked_pallas`` custom VJP (Pallas in interpret mode): the
+    gradients of sum(y^2) + sum(final^2) at 2e-4 (relative, and absolute
+    on the scale of each gradient's largest entry: these gradients reach
+    1e4, and the first position of a chunk in dA's is a cancellation of
+    such terms, float32 noise in either package), ``initial_state``'s only
+    when one is passed."""
+    arrays = _inputs(s + h, (b, s), h, p, g, n, state=with_state)
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    y, f = ops.ssd_chunked_kernel(*ts[:4], chunk=chunk,
+                                  initial_state=ts[4] if with_state else None)
+    got = torch.autograd.grad((y ** 2).sum() + (f ** 2).sum(), ts)
+
+    def jloss(*a):
+        jy, jf = jops.ssd_chunked_pallas(*a[:4], chunk=chunk,
+                                         initial_state=a[4] if with_state else None)
+        return jnp.sum(jy ** 2) + jnp.sum(jf ** 2)
+
+    want = jax.grad(jloss, argnums=tuple(range(len(arrays))))(
+        *map(jnp.asarray, arrays))
+    assert len(got) == len(want) == 4 + with_state
+    for name, gt, w in zip(["x", "dA", "Bm", "Cm", "initial_state"], got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(gt.numpy(), w, rtol=2e-4,
+                                   atol=2e-4 * max(1.0, float(np.abs(w).max())),
+                                   err_msg=name)
