@@ -25,33 +25,52 @@ JSON line and any failure exiting non-zero:
    head dims 16 to 128, causal, windowed and non-causal, S not a multiple of
    the 64-row tile, q/k/v as strided slices of one fused tensor (read in
    place), the serving shape in both dtypes and phase 9's training shape
-   (batch 2) in bf16; K4 with 1, 2 and 4 groups, head counts that leave a
-   short head subset, P above 64, ragged S, the serving shape and the
-   training shape; TF32 off, so the plain versions are float32;
-6. serve -- ``llama3.2-3b`` and then ``mamba2-2.7b`` at full width (random
-   weights from ``--seed``, bf16) through ``repro_torch.serve.Engine`` on
-   ``cuda:0`` with ``use_flash``: 8 greedy requests of 16 new tokens, prompts
-   of 256-2048 tokens (one of 1000), 4 slots.  Every request must finish, and
-   the prefills must launch K3 8 x 28 and K4 8 x 64 times exactly (decode
-   reaches no kernel).  One request's last-token prefill logits are held
-   twice: on a float32 copy of the weights the kernel path must agree with
-   the plain path within a limit per model (``F32_LIMIT``); as served in
-   bf16, the kernel path's distance from the float32 plain logits must stay
-   within ``BF16_RATIO`` times the bf16 plain path's own (64 bf16 layers of
-   random weights amplify rounding-order differences, so a fixed bf16 limit
-   would hold nothing).  Launch counts are set to 0 just before each model's
-   requests and read just after; prefill and decode are timed alone, and
-   with ``--profile`` decode's device time is taken with ``torch.profiler``;
+   (batch 2) in bf16, and the shapes phase 6's other models hand it
+   (``FA_FAMILY_CASES``: zamba2's 32 heads of 80 with its 4096 window at
+   2048 and 6144 tokens, internvl2's 64/8 heads of 128 at 2048 + 256,
+   phi3.5-moe's 32/8, whisper's decoder at 448); K4 with 1, 2 and 4
+   groups, head counts that leave a short head subset, P above 64, ragged
+   S, the serving shape, the training shape and zamba2's (N = 64); TF32
+   off, so the plain versions are float32;
+6. serve -- six models one after the other (``SERVE_MODELS``), at full
+   width with random weights from ``--seed`` in bf16, through
+   ``repro_torch.serve.Engine`` on ``cuda:0`` with ``use_flash``:
+   ``llama3.2-3b``, ``mamba2-2.7b``, ``zamba2-2.7b`` (hybrid: K3 with its
+   window and K4 in one forward), ``whisper-base`` (encdec: K3 in the
+   decoder only, the encoder non-causal and plain; the engine's zero stub
+   frames), ``phi3.5-moe-42b-a6.6b`` and ``internvl2-76b`` (after 256 zero
+   stub vision tokens), the last two cut to 8 of their 32 and 80 layers.
+   8 greedy requests of 16 new tokens, prompts of 256-2048 tokens (32-448
+   for whisper, whose decoder context is 448), one of them the probe (1000
+   tokens; 448 for whisper), 4 slots.  Every request must finish, and the
+   prefills must launch each kernel exactly 8 x its launches per prefill
+   (K3 28 / 9 / 6 / 8 / 8, K4 64 / 54), so decode and whisper's encoder
+   launch none.  The probe's last-token prefill logits are held twice: on
+   a float32 copy of the weights the kernel path must agree with the plain
+   path within a limit per model (``F32_LIMIT``); as served in bf16, the
+   kernel path's distance from the float32 plain logits must stay within
+   ``BF16_RATIO`` times the bf16 plain path's own (64 bf16 layers of random
+   weights amplify rounding-order differences, so a fixed bf16 limit would
+   hold nothing).  These gates give whisper and internvl2 seeded random
+   stub inputs.  zamba2 also runs one prefill of 6144 tokens, past its
+   window, through ``hybrid.forward`` on its float32 weights: every
+   position's logits on the kernel path against the plain (blockwise,
+   windowed) path under its ``F32_LIMIT``.  Launch counts are set to 0
+   just before each model's requests and read just after; prefill and
+   decode are timed alone, and with ``--profile`` decode's device time is
+   taken with ``torch.profiler``;
 7. the per-kernel line -- K1 and K2 at the shapes of phase 3, K3 (bf16, and
    float32 as a second entry) and K4 at the serving shape (S = 2048): CUDA
    events with a cold L2, beside the bound (the larger of bytes over the
    memory rate and operations over the peak rate of their type) and its
    share of the kernel's time, the plain version and one PyTorch call
-   computing the same function where there is one.  ``launches`` is the
-   count on the path: phase 3 for K1/K2, phase 6's requests for K3 bf16 and
-   K4, phase 6's float32 logits gate for K3 float32; K1/K2 also carry their
-   launches in each run of phase 8 (``launches_faults``), K3 bf16 and K4
-   in phase 9's training steps (``launches_train``);
+   computing the same function where there is one (SDPA for K3; where a
+   window bites, with a boolean sliding-window mask).  ``launches`` is the
+   count on the path: phase 3 for K1/K2, phase 6's requests of all six
+   models for K3 bf16 and K4 (``launches_by_arch`` splits them), phase 6's
+   float32 gates for K3 float32; K1/K2 also carry their launches in each
+   run of phase 8 (``launches_faults``), K3 bf16 and K4 in phase 9's
+   training steps (``launches_train``);
 8. faults -- checkpointed restart and elastic rescale on ``cuda:0`` at the
    field size of phase 3: one ``nyx`` evolves a 256^3 float32 density (from
    ``--seed``) through 8 snapshots with a torch diffusion step and
@@ -137,20 +156,39 @@ REPLACES = {"pack_blocks": "src/repro/kernels/pack.py:37",
 CSRC = "src/repro_torch/kernels/csrc"
 SOURCES = {"pack_blocks": "pack", "pack_cols": "pack",
            "flash_attention": "flash_attention", "ssd_intra_chunk": "ssd_scan"}
-# phase 6: two models at full width, one after the other
-SERVE_ARCHS = (("llama3.2-3b", "flash_attention"), ("mamba2-2.7b", "ssd_intra_chunk"))
+# phase 6: six models at full width, one after the other: (arch, each kernel's
+# launches per prefill, prompt lengths drawn from the seed, the probe's length
+# (one prompt's, and the flash-vs-plain probe), layers kept of the config's).
+# phi3.5-moe and internvl2 keep 8 of their 32 and 80 layers.  In bf16 the full
+# models take 85 and 153 GB, more than the card holds, but bf16 weights and
+# the KV cache alone would fit about 30 and 42 layers (80 GB, no activations).
+# The cut is set by the float32 gate, which converts these same weights in
+# place (4 bytes a parameter: room for about 15 and 20 layers), with room left
+# for its activations and for the script's time limit
+SERVE_MODELS = (
+    ("llama3.2-3b", {"flash_attention": 28}, (256, 2048), 1000, None),
+    ("mamba2-2.7b", {"ssd_intra_chunk": 64}, (256, 2048), 1000, None),
+    ("zamba2-2.7b", {"flash_attention": 9, "ssd_intra_chunk": 54}, (256, 2048),
+     1000, None),
+    ("whisper-base", {"flash_attention": 6}, (32, 448), 448, None),  # decoder only
+    ("phi3.5-moe-42b-a6.6b", {"flash_attention": 8}, (256, 2048), 1000, 8),
+    ("internvl2-76b", {"flash_attention": 8}, (256, 2048), 1000, 8),
+)
 N_REQUESTS = 8
 NEW_TOKENS = 16
-PROMPT_LENS = (256, 2048)    # drawn from the seed
-PROBE_LEN = 1000             # one prompt's length, and the flash-vs-plain probe
 SERVE_SLOTS = 4
 SERVE_MAX_LEN = 4096
-# phase 6 gates: kernel path vs plain path on float32 weights, per model (about
-# 25x and 8x the readings of 3.8e-6 and 2.5e-4 on the H100), and, as served in
-# bf16, the kernel path's error against the float32 plain logits over the bf16
-# plain path's error against them
-F32_LIMIT = {"llama3.2-3b": 1e-4, "mamba2-2.7b": 2e-3}
+# phase 6 gates: kernel path vs plain path on float32 weights, per model, and,
+# as served in bf16, the kernel path's error against the float32 plain logits
+# over the bf16 plain path's error against them.  The K3-only models take
+# llama's limit and zamba2 mamba's.  Readings on the H100 (relative L2):
+# llama 3.8e-6, mamba 2.4e-4, zamba2 3.1e-4 (its 6144-token window gate
+# 1.7e-4), whisper 7.9e-7, phi3.5-moe 1.4e-6, internvl2 4.3e-6
+F32_LIMIT = {"llama3.2-3b": 1e-4, "mamba2-2.7b": 2e-3, "zamba2-2.7b": 2e-3,
+             "whisper-base": 1e-4, "phi3.5-moe-42b-a6.6b": 1e-4,
+             "internvl2-76b": 1e-4}
 BF16_RATIO = 2.0
+WINDOW_GATE_S = 6144         # zamba2: one prefill past its 4096-token window
 TIME_S = 2048                # serving shape at which K3 and K4 are timed
 # phase 9: training at full width, one model after the other
 TRAIN_ARCHS = (("llama3.2-3b", "flash_attention"), ("mamba2-2.7b", "ssd_intra_chunk"))
@@ -394,6 +432,16 @@ FA_CASES = [  # (B, S, H, KV, D, dtype, causal, window)
     (1, TIME_S, 24, 8, 128, torch.bfloat16, True, 0),
     (2, TIME_S, 24, 8, 128, torch.bfloat16, True, 0),  # the training shape
 ]
+# phase 6's other models, at the shapes their prefills hand K3: label ->
+# (B, S, H, KV, D, dtype, causal, window)
+FA_FAMILY_CASES = {
+    "zamba2 serving": (1, TIME_S, 32, 32, 80, torch.bfloat16, True, 4096),
+    "zamba2 window gate": (1, 6144, 32, 32, 80, torch.float32, True, 4096),
+    "zamba2 past the window": (1, 6144, 32, 32, 80, torch.bfloat16, True, 4096),
+    "internvl2 serving": (1, TIME_S + 256, 64, 8, 128, torch.bfloat16, True, 0),
+    "phi3.5-moe serving": (1, TIME_S, 32, 8, 128, torch.bfloat16, True, 0),
+    "whisper decoder": (1, 448, 8, 8, 64, torch.bfloat16, True, 0),
+}
 # bf16 q/k/v as slices of one fused (B, S, H + 2 KV, D) tensor: strided views
 # with unit D stride, which the kernel reads in place: (B, S, H, KV, D, causal)
 FA_FUSED_CASES = [(2, 1000, 24, 8, 128, True)]
@@ -411,6 +459,7 @@ SSD_CASES = [  # (B, S, H, P, G, N, chunk)
     (1, TIME_S, 80, 64, 1, 128, 256), # the serving shape
     (2, TIME_S, 80, 64, 1, 128, 256), # the training shape
 ]
+SSD_FAMILY_CASES = {"zamba2 serving": (1, TIME_S, 80, 64, 1, 64, 256)}
 
 
 def fa_inputs(dev, b, s, h, kv, d, dtype, seed):
@@ -453,12 +502,14 @@ def check_model_kernels(ops, ref, build, dev):
 
     res = {"flash_attention": {"cases": 0, "max_abs_err_f32": 0.0,
                                "max_abs_err_bf16": 0.0, "max_share_of_limit": 0.0,
-                               "serving_shape": {}},
-           "ssd_intra_chunk": {"cases": 0, "max_abs_err": 0.0}}
-    cases = [(c, False) for c in FA_CASES] + [
-        ((b, s, h, kv, d, torch.bfloat16, causal, 0), True)
-        for b, s, h, kv, d, causal in FA_FUSED_CASES]
-    for i, ((b, s, h, kv, d, dt, causal, window), fused) in enumerate(cases):
+                               "serving_shape": {}, "family_shapes": {}},
+           "ssd_intra_chunk": {"cases": 0, "max_abs_err": 0.0,
+                               "family_shapes": {}}}
+    cases = [(c, False, None) for c in FA_CASES] + [
+        ((b, s, h, kv, d, torch.bfloat16, causal, 0), True, None)
+        for b, s, h, kv, d, causal in FA_FUSED_CASES] + [
+        (c, False, label) for label, c in FA_FAMILY_CASES.items()]
+    for i, ((b, s, h, kv, d, dt, causal, window), fused, label) in enumerate(cases):
         if fused:
             g = torch.Generator(device=dev).manual_seed(100 + i)
             qkv = torch.randn((b, s, h + 2 * kv, d), generator=g, device=dev).to(dt)
@@ -483,9 +534,16 @@ def check_model_kernels(ops, ref, build, dev):
         r[key] = max(r[key], err)
         r["max_share_of_limit"] = max(r["max_share_of_limit"], share)
         r["cases"] += 1
-        if s == TIME_S and b == 1:
+        if label is not None:
+            r["family_shapes"][label] = {"shape": [b, s, h, kv, d], "window": window,
+                                         "dtype": str(dt).removeprefix("torch."),
+                                         "max_abs_err": err, "share_of_limit": share}
+        elif (b, s, h, kv, d) == (1, TIME_S, 24, 8, 128):
             r["serving_shape"][str(dt).removeprefix("torch.")] = err
-    for i, (b, s, h, p, g_, n, chunk) in enumerate(SSD_CASES):
+        del got, want, diff
+    ssd_cases = [(c, None) for c in SSD_CASES] + [
+        (c, label) for label, c in SSD_FAMILY_CASES.items()]
+    for i, ((b, s, h, p, g_, n, chunk), label) in enumerate(ssd_cases):
         args = ssd_inputs(dev, b, s, h, p, g_, n, chunk, 200 + i)
         y, st = launched("ssd_intra_chunk", lambda: ops.ssd_intra_chunk(*args))
         y_ref, st_ref = ref.ssd_intra_chunk_ref(*args)
@@ -497,7 +555,10 @@ def check_model_kernels(ops, ref, build, dev):
         r = res["ssd_intra_chunk"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["cases"] += 1
-        if s == TIME_S and b == 1:
+        if label is not None:
+            r["family_shapes"][label] = {"shape": [b, s, h, p, g_, n, chunk],
+                                         "max_abs_err": err}
+        elif (b, s, n) == (1, TIME_S, 128):
             r["max_abs_err_serving_shape"] = err
     return res
 
@@ -532,14 +593,86 @@ def decode_device_time(fn, n, wall_per_token):
             "decode_kernels_per_token": sum(e.count for e in events) / n}
 
 
-def serve_model(arch, kernel, build, dev, seed, profile):
+def stub_inputs(cfg, dev, seed):
+    """The frontends' stand-ins of the vlm and encdec families for the
+    logits gates: vision embeddings (1, V, d) and frames (1, S_src, d),
+    N(0, 0.02^2) from the seed (the engine serves zeros, as the reference
+    engine does)."""
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    if cfg.family == "vlm":
+        return {"vision_embeds": 0.02 * torch.randn(
+            (1, cfg.vision_tokens, cfg.d_model), generator=g, device=dev)}
+    if cfg.family == "encdec":
+        return {"frames": 0.02 * torch.randn(
+            (1, cfg.source_len, cfg.d_model), generator=g, device=dev)}
+    return {}
+
+
+def launches_since(build, before):
+    """Each kernel's launches since ``before`` (a ``launch_counts()``), for
+    the kernels that launched."""
+    return {k: n - before.get(k, 0) for k, n in build.launch_counts().items()
+            if n - before.get(k, 0)}
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def window_gate(model, cfg, want, build, dev, seed):
+    """zamba2 past its window: one prefill of WINDOW_GATE_S tokens through
+    ``hybrid.forward`` without a cache, on the model's float32 weights;
+    the kernel path's logits at every position against the plain path's
+    (blockwise, windowed) under the model's F32_LIMIT, and the kernel
+    path's launches against ``want``, one prefill's."""
+    from repro_torch.models import hybrid
+    from repro_torch.models import layers as L
+
+    c = cfg.replace(dtype="float32")
+    toks = torch.as_tensor(np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab, (1, WINDOW_GATE_S)), device=dev)
+    out, launched = {}, {}
+    for use_flash in (True, False):
+        before = build.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, _ = hybrid.forward(model, c.replace(use_flash=use_flash), toks)
+        out[use_flash] = L.unembed(model.embed, h)[0].float()
+        torch.cuda.synchronize()
+        launched[use_flash] = launches_since(build, before)
+        out[f"s_{use_flash}"] = time.perf_counter() - t0
+    err = rel_l2(out[True], out[False])
+    row = {"tokens": WINDOW_GATE_S, "window": cfg.window,
+           "flash_vs_plain_rel_l2_f32": err, "limit": F32_LIMIT[cfg.name],
+           "launches": launched[True], "plain_launches": launched[False],
+           "flash_s": out["s_True"], "plain_s": out["s_False"],
+           "logits_finite": bool(torch.isfinite(out[True]).all()
+                                 and torch.isfinite(out[False]).all())}
+    problems = []
+    if not (row["logits_finite"] and err <= F32_LIMIT[cfg.name]):
+        problems.append(f"{cfg.name}: the {WINDOW_GATE_S}-token windowed prefill "
+                        f"differs: {row}")
+    if launched[True] != want or launched[False]:
+        problems.append(f"{cfg.name}: window gate launches {launched}, "
+                        f"expected {want} on the kernel path and none plain")
+    del out
+    return row, launched[True], problems
+
+
+def serve_model(arch, per_prefill, prompt_lens, probe_len, n_layers, build, dev,
+                seed, profile):
     """One model at full width through the port's Engine; returns its
-    metrics and the launches of every kernel during its requests."""
+    metrics, the launches of every kernel during its requests, and the
+    launches of its float32 gates."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import get_family
     from repro_torch.serve import Engine, Request, ServeConfig
 
-    cfg = get_config(arch).replace(use_flash=True)
+    full = get_config(arch)
+    cfg = full.replace(use_flash=True)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     eng = Engine(cfg, ServeConfig(max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN),
@@ -547,8 +680,8 @@ def serve_model(arch, kernel, build, dev, seed, profile):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(seed)
-    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=N_REQUESTS)
-    lens[N_REQUESTS // 2] = PROBE_LEN
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, size=N_REQUESTS)
+    lens[N_REQUESTS // 2] = probe_len
     prompts = [rng.integers(0, cfg.vocab, int(n), dtype=np.int32) for n in lens]
 
     warm = Request(rid=-1, prompt=prompts[0][:64], max_new_tokens=2)  # cuBLAS, allocator
@@ -571,11 +704,13 @@ def serve_model(arch, kernel, build, dev, seed, profile):
     if not all(r.done and len(r.out_tokens) == NEW_TOKENS for r in reqs):
         problems.append(f"{arch}: requests unfinished: "
                         f"{[len(r.out_tokens) for r in reqs]}")
-    want = N_REQUESTS * cfg.n_layers
-    if launches.get(kernel, 0) != want:
-        problems.append(f"{arch}: {kernel} launched {launches.get(kernel, 0)} "
-                        f"times, expected {want} (one per layer per prefill)")
-    others = {k: n for k, n in launches.items() if k != kernel and n}
+    for kernel, per in per_prefill.items():
+        want = N_REQUESTS * per
+        if launches.get(kernel, 0) != want:
+            problems.append(f"{arch}: {kernel} launched {launches.get(kernel, 0)} "
+                            f"times, expected {want} ({per} per prefill, none in "
+                            f"decode)")
+    others = {k: n for k, n in launches.items() if k not in per_prefill and n}
     if others:
         problems.append(f"{arch}: other kernels launched on its path: {others}")
 
@@ -585,6 +720,7 @@ def serve_model(arch, kernel, build, dev, seed, profile):
     fam = get_family(cfg)
     probe = torch.as_tensor(prompts[N_REQUESTS // 2][None].astype(np.int64),
                             device=dev)
+    stubs = stub_inputs(cfg, dev, seed)
 
     def last_logits(c, dtype=torch.bfloat16, decode_timing=None):
         """Last-token prefill logits of the probe (the prefill timed alone);
@@ -592,7 +728,7 @@ def serve_model(arch, kernel, build, dev, seed, profile):
         cache = fam.init_cache(c, 1, SERVE_MAX_LEN, dtype=dtype, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, cache = fam.prefill(eng.params, c, {"tokens": probe}, cache)
+        out, cache = fam.prefill(eng.params, c, {"tokens": probe, **stubs}, cache)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         if decode_timing is not None:
@@ -616,9 +752,6 @@ def serve_model(arch, kernel, build, dev, seed, profile):
                     lambda: decode(NEW_TOKENS), NEW_TOKENS, per_token))
         return out[0, -1].float(), prefill_s
 
-    def rel_l2(a, b):
-        return ((a - b).norm() / b.norm()).item()
-
     timing, logits = {}, {}
     with torch.no_grad():
         # as served (bf16), each path timed alone
@@ -626,14 +759,19 @@ def serve_model(arch, kernel, build, dev, seed, profile):
             logits[use_flash], t = last_logits(
                 cfg.replace(use_flash=use_flash),
                 decode_timing=timing if use_flash else None)
-            timing[f"prefill_{PROBE_LEN}_s_{'flash' if use_flash else 'plain'}"] = t
+            timing[f"prefill_{probe_len}_s_{'flash' if use_flash else 'plain'}"] = t
         # the same weights in float32, where rounding-order differences stay
         # small through the model's depth
         eng.params.float()
-        before = build.launch_counts([kernel])[kernel]
+        before = build.launch_counts()
         logits32 = {uf: last_logits(cfg.replace(use_flash=uf, dtype="float32"),
                                     dtype=torch.float32)[0] for uf in (True, False)}
-        f32_launches = build.launch_counts([kernel])[kernel] - before
+        f32_launches = launches_since(build, before)
+        window = None
+        if cfg.window and WINDOW_GATE_S > cfg.window:
+            window, window_launches, more = window_gate(
+                eng.params, cfg, per_prefill, build, dev, seed)
+            problems += more
     agree = {"flash_vs_plain_rel_l2_f32": rel_l2(logits32[True], logits32[False]),
              "flash_vs_plain_rel_l2_bf16": rel_l2(logits[True], logits[False]),
              "flash_bf16_vs_plain_f32_rel_l2": rel_l2(logits[True], logits32[False]),
@@ -648,41 +786,134 @@ def serve_model(arch, kernel, build, dev, seed, profile):
         problems.append(f"{arch}: flash vs plain prefill logits {agree} against "
                         f"limits {F32_LIMIT[arch]} (float32) and ratio "
                         f"{BF16_RATIO} (bf16), finite {finite}")
+    if f32_launches != per_prefill:
+        problems.append(f"{arch}: the float32 gate launched {f32_launches}, "
+                        f"expected {per_prefill}")
 
     ttfts = sorted(r.t_first - r.t_submit for r in reqs)
     tokens = sum(len(r.out_tokens) for r in reqs)
     pct = lambda xs, p: xs[min(len(xs) - 1, int(p * len(xs)))]  # noqa: E731
-    row = {"phase": "serve", "arch": arch, "use_flash": True,
+    row = {"phase": "serve", "arch": arch, "family": cfg.family, "use_flash": True,
            "params": n_params, "param_bytes": param_bytes,
            "init_s": init_s, "requests": N_REQUESTS, "prompt_lens": lens.tolist(),
            "prompt_tokens": int(lens.sum()), "tokens": tokens, "wall_s": wall,
            "tokens_per_s": tokens / wall, "ttft_p50_s": pct(ttfts, .5),
            "ttft_p95_s": pct(ttfts, .95), "launches": launches,
-           **agree, "logits_finite": finite, "float32_gate_launches": f32_launches,
-           **timing,
+           "launches_per_prefill": per_prefill,
+           **agree, "f32_limit": F32_LIMIT[arch], "logits_finite": finite,
+           "float32_gate_launches": dict(f32_launches), **timing,
            "max_memory_allocated": peak_mem}
+    if n_layers is not None:
+        row["reduced"] = {"n_layers": [n_layers, full.n_layers]}
+    if stubs:
+        row["gate_stub_inputs"] = {k: list(v.shape) for k, v in stubs.items()}
+    if window is not None:
+        row["window_gate"] = window
+        for k, n in window_launches.items():
+            f32_launches[f"{k}:window"] = n
     del eng, logits, logits32
     gc.collect()
     torch.cuda.empty_cache()
-    return row, launches, problems
+    return row, launches, f32_launches, problems
 
 
 # --------------------------------------------------------------- phase 7
-def time_model_kernels(ref, fa, ssd, dev, rates, launches, errs):
-    """K3 and K4 at the serving shape (S = 2048), cold L2."""
+def fa_flops(b, s, h, d, window) -> float:
+    """Operations of causal attention over s tokens, window included: each
+    query i scores and sums min(i + 1, window) keys (2 products x 2 d)."""
+    keys = s * (s + 1) / 2
+    if window and window < s:
+        keys = window * (window + 1) / 2 + (s - window) * window
+    return 4 * b * h * d * keys
+
+
+def sdpa(q, k, v, window):
+    """One PyTorch call computing causal (windowed) GQA attention, on BHSD
+    views: ``scaled_dot_product_attention`` with ``is_causal``, or, where
+    the window bites, with a boolean (S, S) mask (j <= i) & (j > i - window)
+    built here once.  Returns (the call, what it is)."""
+    s, h, kv = q.shape[1], q.shape[2], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = {"enable_gqa": True} if h != kv else {}
+    if not window or window >= s:
+        return (lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, **gqa)), (
+            f"torch.nn.functional.scaled_dot_product_attention(is_causal=True"
+            f"{', enable_gqa=True' if gqa else ''}) on BHSD views")
+    i = torch.arange(s, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    return (lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, **gqa)), (
+        f"torch.nn.functional.scaled_dot_product_attention(attn_mask=(j <= i) "
+        f"& (j > i - {window}) as a bool (S, S) tensor"
+        f"{', enable_gqa=True' if gqa else ''}) on BHSD views")
+
+
+def fa_timing(fa, ref, q, k, v, window, rates, flush):
+    """K3 (causal, ``window``) on q/k/v, cold L2: its time, its plain
+    version's and SDPA's (with SDPA's largest difference from the kernel),
+    beside the bound."""
     bw, bf16_rate, f32_rate = rates
+    rate = bf16_rate if q.dtype == torch.bfloat16 else f32_rate
+    b, s, h, d = q.shape
+    flops = fa_flops(b, s, h, d, window)
+    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, True, window), flush)
+    bound = max(flops / rate, moved / bw) * 1e3
+    library, library_name = sdpa(q, k, v, window)
+    lib_err = (library().transpose(1, 2).float()
+               - fa.flash_attention(q, k, v, True, window).float()).abs().max().item()
+    return {"ms": ms,
+            "plain_ms": time_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=True, window=window), flush),
+            "bound_ms": bound,
+            "bound_by": "operations" if flops / rate > moved / bw else "bytes",
+            "share_of_bound": bound / ms,
+            "flops": flops, "bytes": moved, "peak_flops": rate,
+            "library_ms": time_ms(library, flush), "library": library_name,
+            "library_max_abs_diff": lib_err,
+            "tflops": flops / ms / 1e9}
+
+
+def ssd_work(args):
+    """(operations, bytes) of one SSD intra-chunk call on chunked inputs."""
+    x, dA, Bm, Cm = args
+    b, nc, qq, h, p = x.shape
+    g_, n = Bm.shape[3], Bm.shape[4]
+    tri = qq * (qq + 1) / 2
+    flops = 2 * b * nc * (g_ * tri * n + h * tri * p + h * qq * n * p)
+    moved = 4 * (2 * x.numel() + dA.numel() + Bm.numel() + Cm.numel()
+                 + b * nc * h * n * p)
+    return flops, moved
+
+
+def ssd_timing(ssd, ref, args, rates, flush):
+    """K4 on chunked float32 inputs, cold L2: its time and its plain
+    version's beside the bound (no single PyTorch call computes it)."""
+    bw, _, f32_rate = rates
+    flops, moved = ssd_work(args)
+    ms = time_ms(lambda: ssd.ssd_intra_chunk(*args), flush)
+    bound = max(flops / f32_rate, moved / bw) * 1e3
+    return {"ms": ms,
+            "plain_ms": time_ms(lambda: ref.ssd_intra_chunk_ref(*args), flush),
+            "bound_ms": bound,
+            "bound_by": "operations" if flops / f32_rate > moved / bw else "bytes",
+            "share_of_bound": bound / ms,
+            "flops": flops, "bytes": moved, "peak_flops": f32_rate,
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the SSD intra-chunk step",
+            "tflops": flops / ms / 1e9}
+
+
+def time_model_kernels(ref, fa, ssd, dev, rates, launches, errs):
+    """K3 (bf16 and float32) and K4 at the serving shape (S = 2048), and, in
+    ``family_shapes``, K3 bf16 and K4 at the shapes phase 6's other models
+    hand them (``FA_FAMILY_CASES``, ``SSD_FAMILY_CASES``)."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     out = []
-
-    # K3 in bf16 (tensor cores, the served path) and float32 (CUDA cores)
     b, s, h, kv, d = 1, TIME_S, 24, 8, 128
-    flops = 4 * b * h * d * s * (s + 1) / 2
-    for dt, rate in ((torch.bfloat16, bf16_rate), (torch.float32, f32_rate)):
-        q, k, v = fa_inputs(dev, b, s, h, kv, d, dt, 7)
-        moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    for dt in (torch.bfloat16, torch.float32):  # tensor cores, CUDA cores
         name = str(dt).removeprefix("torch.")
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, True, 0), flush)
-        bound = max(flops / rate, moved / bw) * 1e3
         out.append({
             "name": "flash_attention", "dtype": name, "route": "cuda",
             "source": source("flash_attention"),
@@ -691,31 +922,8 @@ def time_model_kernels(ref, fa, ssd, dev, rates, launches, errs):
                                  else "flash_attention:float32"],
             "max_abs_err": errs["flash_attention"]["serving_shape"][name],
             "shape": f"q (1, 2048, 24, 128), k/v (1, 2048, 8, 128) {name}, causal",
-            "ms": ms,
-            "plain_ms": time_ms(
-                lambda: ref.flash_attention_ref(q, k, v, causal=True), flush),
-            "bound_ms": bound,
-            "bound_by": "operations" if flops / rate > moved / bw else "bytes",
-            "share_of_bound": bound / ms,
-            "flops": flops, "bytes": moved, "peak_flops": rate,
-            "library_ms": time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=True, enable_gqa=True), flush),
-            "library": "torch.nn.functional.scaled_dot_product_attention("
-                       "is_causal=True, enable_gqa=True) on BHSD views",
-            "tflops": flops / ms / 1e9,
-        })
-
-    b, h, p, g_, n, chunk = 1, 80, 64, 1, 128, 256
-    args = ssd_inputs(dev, b, TIME_S, h, p, g_, n, chunk, 8)
-    nc, qq = args[0].shape[1], args[0].shape[2]
-    tri = qq * (qq + 1) / 2
-    flops = 2 * b * nc * (g_ * tri * n + h * tri * p + h * qq * n * p)
-    moved = 4 * (2 * args[0].numel() + args[1].numel() + args[2].numel()
-                 + args[3].numel() + b * nc * h * n * p)
-    ms = time_ms(lambda: ssd.ssd_intra_chunk(*args), flush)
-    bound = max(flops / f32_rate, moved / bw) * 1e3
+            **fa_timing(fa, ref, *fa_inputs(dev, b, s, h, kv, d, dt, 7), 0,
+                        rates, flush)})
     out.append({
         "name": "ssd_intra_chunk", "dtype": "float32", "route": "cuda",
         "source": source("ssd_intra_chunk"),
@@ -723,16 +931,18 @@ def time_model_kernels(ref, fa, ssd, dev, rates, launches, errs):
         "launches": launches["ssd_intra_chunk"],
         "max_abs_err": errs["ssd_intra_chunk"]["max_abs_err_serving_shape"],
         "shape": "x (1, 8, 256, 80, 64), dA (1, 8, 256, 80), B/C (1, 8, 256, 1, 128) f32",
-        "ms": ms,
-        "plain_ms": time_ms(lambda: ref.ssd_intra_chunk_ref(*args), flush),
-        "bound_ms": bound,
-        "bound_by": "operations" if flops / f32_rate > moved / bw else "bytes",
-        "share_of_bound": bound / ms,
-        "flops": flops, "bytes": moved, "peak_flops": f32_rate,
-        "library_ms": None,
-        "library": "none: no single PyTorch call computes the SSD intra-chunk step",
-        "tflops": flops / ms / 1e9,
-    })
+        **ssd_timing(ssd, ref, ssd_inputs(dev, 1, TIME_S, 80, 64, 1, 128, 256, 8),
+                     rates, flush)})
+    out[0]["family_shapes"] = {
+        label: {"shape": [b, s, h, kv, d], "window": window,
+                **fa_timing(fa, ref, *fa_inputs(dev, b, s, h, kv, d, dt, 9),
+                            window, rates, flush)}
+        for label, (b, s, h, kv, d, dt, _, window) in FA_FAMILY_CASES.items()
+        if dt == torch.bfloat16}
+    out[2]["family_shapes"] = {
+        label: {"shape": list(c),
+                **ssd_timing(ssd, ref, ssd_inputs(dev, *c, 10), rates, flush)}
+        for label, c in SSD_FAMILY_CASES.items()}
     return out
 
 
@@ -926,11 +1136,6 @@ def faults_phase(core, build, dev, seed):
 
 
 # --------------------------------------------------------------- phase 9
-def rel_l2(a, b) -> float:
-    a, b = a.double(), b.double()
-    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-
-
 def profiled_step(step, state, batch, wall_per_step):
     """One training step under ``torch.profiler``: its device (kernel)
     time by kernel kind, that time's share of the unprofiled wall time per
@@ -1264,14 +1469,24 @@ def main() -> int:
                         "ssd_intra_chunk": 2e-4},
           **errs})
 
-    for arch, kernel in SERVE_ARCHS:
-        row, served, problems = serve_model(arch, kernel, build, dev, args.seed,
-                                            args.profile)
-        launches[kernel] = served.get(kernel, 0)
-        launches[f"{kernel}:float32"] = row["float32_gate_launches"]
+    serve_launches = {}   # kernel -> {arch: launches over its 8 requests}
+    gate_launches = {}    # kernel (":window": zamba2's window gate) -> {arch: n}
+    for arch, per_prefill, lens, probe_len, n_layers in SERVE_MODELS:
+        row, served, f32, problems = serve_model(
+            arch, per_prefill, lens, probe_len, n_layers, build, dev, args.seed,
+            args.profile)
+        for k in per_prefill:
+            serve_launches.setdefault(k, {})[arch] = served.get(k, 0)
+        for k, n in f32.items():
+            gate_launches.setdefault(k, {})[arch] = n
         emit(row)
         if problems:
             raise RuntimeError("; ".join(problems))
+    for k, by_arch in serve_launches.items():
+        launches[k] = sum(by_arch.values())
+    launches["flash_attention:float32"] = sum(
+        n for k in ("flash_attention", "flash_attention:window")
+        for n in gate_launches.get(k, {}).values())
 
     faults_launches = faults_phase(core, build, dev, args.seed)
     train_launches = train_phase(build, ops, ref, dev, args.seed)
@@ -1281,6 +1496,16 @@ def main() -> int:
         k["launches_faults"] = {run: n[k["name"]]
                                 for run, n in faults_launches.items()}
     kernels += time_model_kernels(ref, fa, ssd, dev, rates, launches, errs)
+    for k in kernels[2:]:  # K3 bf16 and K4: phase 6's requests; K3 float32: its gates
+        if k["name"] == "flash_attention" and k["dtype"] == "float32":
+            k["launches_by_arch"] = {
+                "float32 gates": gate_launches.get("flash_attention", {}),
+                "window gate": gate_launches.get("flash_attention:window", {})}
+        else:
+            k["launches_by_arch"] = serve_launches.get(k["name"], {})
+            k["launches_float32_gates"] = {
+                "float32 gates": gate_launches.get(k["name"], {}),
+                "window gate": gate_launches.get(f"{k['name']}:window", {})}
     for k in kernels:   # training runs K3 in bf16 only
         on_path = k["name"] == "ssd_intra_chunk" or (
             k["name"] == "flash_attention" and k["dtype"] == "bfloat16")

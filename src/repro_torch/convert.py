@@ -21,7 +21,7 @@ checkpoint of either package's ``TrainState`` resumes in the other.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,14 +117,32 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
+# the reference's subtrees stacked along a leading layer axis: ``layers``
+# (every decoder-only family), ``enc`` and ``dec`` (encdec).  Others, such
+# as the hybrid's ``shared`` block, hold one weight set.
+STACKED = ("layers", "enc", "dec")
+
+
+def reference_leaf(name: str) -> Tuple[str, Optional[int]]:
+    """(the reference leaf's dotted path, the layer index or None) of port
+    parameter ``name``: ``dec.1.ln3.scale`` -> ("dec.ln3.scale", 1);
+    ``shared.ln1.scale`` -> ("shared.ln1.scale", None)."""
+    parts = name.split(".")
+    if len(parts) > 2 and parts[0] in STACKED and parts[1].isdigit():
+        return ".".join([parts[0]] + parts[2:]), int(parts[1])
+    return name, None
+
+
 def _unstack(tree: Mapping[str, Any]) -> Dict[str, Any]:
     """The reference's nested, layer-stacked tree as ``{port name: array}``:
-    slice i of ``layers/<path>`` becomes ``layers.<i>.<path>``."""
+    slice i of ``<stack>/<path>`` becomes ``<stack>.<i>.<path>`` for each
+    stack in ``STACKED``."""
     arrays: Dict[str, Any] = {}
     for name, a in _flatten(tree):
-        if name.startswith("layers."):
+        stack, _, rest = name.partition(".")
+        if stack in STACKED and rest:
             for i in range(np.shape(a)[0]):
-                arrays[f"layers.{i}.{name[len('layers.'):]}"] = a[i]
+                arrays[f"{stack}.{i}.{rest}"] = a[i]
         else:
             arrays[name] = a
     return arrays
@@ -133,18 +151,17 @@ def _unstack(tree: Mapping[str, Any]) -> Dict[str, Any]:
 def _stack(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """``{port name: tensor}`` as the reference's nested, layer-stacked tree
     of CPU tensors (the inverse of ``_unstack``)."""
-    layers: Dict[str, Dict[int, torch.Tensor]] = {}
+    stacked: Dict[str, Dict[int, torch.Tensor]] = {}
     flat: Dict[str, torch.Tensor] = {}
     for name, t in named.items():
-        parts = name.split(".")
+        key, layer = reference_leaf(name)
         t = t.detach().cpu()
-        if len(parts) > 2 and parts[0] == "layers" and parts[1].isdigit():
-            layers.setdefault(".".join(parts[2:]), {})[int(parts[1])] = t
-        else:
+        if layer is None:
             flat[name] = t
-    for name, by_layer in layers.items():
-        flat[f"layers.{name}"] = torch.stack(
-            [by_layer[i] for i in range(len(by_layer))])
+        else:
+            stacked.setdefault(key, {})[layer] = t
+    for name, by_layer in stacked.items():
+        flat[name] = torch.stack([by_layer[i] for i in range(len(by_layer))])
     tree: Dict[str, Any] = {}
     for name, t in flat.items():
         *path, leaf = name.split(".")
@@ -158,8 +175,9 @@ def _stack(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 def params_to_reference(model: Any) -> Dict[str, Any]:
     """The reference's parameter tree of ``model``: nested dicts of CPU
     tensors, the layers stacked along a leading axis (``layers.<i>.<path>``
-    back to slice i of ``layers/<path>``).  ``numpy_from_tensor`` gives
-    host arrays (bfloat16 as its bit pattern)."""
+    back to slice i of ``layers/<path>``, and so for ``enc``/``dec``).
+    ``numpy_from_tensor`` gives host arrays (bfloat16 as its bit
+    pattern)."""
     return _stack(dict(model.named_parameters()))
 
 
@@ -207,7 +225,8 @@ def params_from_reference(cfg: Any, tree: Mapping[str, Any], device: Any = None)
     ``jax.tree.map(np.asarray, get_family(cfg).init(key, cfg))`` gives).
 
     The reference stacks its layers along a leading axis; slice i of
-    ``layers/<path>`` becomes parameter ``layers.<i>.<path>``.  Layouts are
+    ``layers/<path>`` becomes parameter ``layers.<i>.<path>`` (and so for
+    encdec's ``enc``/``dec``).  Layouts are
     the same in both packages, so every parameter is a copy; bfloat16
     crosses through its 16-bit view.  Raises on a missing or extra name, or
     on a shape or dtype that differs."""

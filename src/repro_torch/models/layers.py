@@ -1,5 +1,6 @@
-"""Shared layers of the dense and ssm families: RMSNorm, RoPE, GQA attention
-with a KV cache, SwiGLU, the embedding and its unembedding.
+"""Shared layers of every model family: RMSNorm, RoPE, GQA attention with a
+KV cache or cross-attention K/V, SwiGLU, the routed MoE, the embedding and
+its unembedding.
 
 Parameters keep the reference's names, shapes and layouts
 (``src/repro/models/layers.py``): ``wq`` is (d, H*hd) and is applied as
@@ -18,7 +19,17 @@ is differentiable) when ``cfg.use_flash`` is set, else to its plain version
 ``kernels.ref.flash_attention_ref`` (the reference's ``_sdpa``); decode
 attends over the cache in torch, as the reference does.  The cache is
 updated in place (the reference returns a new one): a slot's cache is
-written once per token, never copied.
+written once per token, never copied.  Cross-attention (``xattn_kv``)
+takes precomputed K/V: no ``wk``/``wv`` projection, no RoPE, no cache, and
+always the plain attention.
+
+``MoE`` holds the reference's expert weights (``router`` float32 (d, E),
+``gate``/``up`` (E, d, f), ``down`` (E, f, d)); ``moe`` routes top-k with
+the sorted, capacity-limited dispatch and ``moe_dense`` is the
+every-token-through-every-expert oracle (layers.py:287-400).  The
+reference's ``a2a`` dispatch needs a device mesh (``moe_a2a.
+a2a_available``); on one device it falls through to sorted/dense, as the
+reference does without a mesh.
 
 ``blockwise_attention`` is the reference's pure-array flash attention
 (online softmax over key chunks): the long-sequence path of ``attend`` and
@@ -45,7 +56,8 @@ from ..kernels import ops as kops
 from ..kernels import ref as kref
 
 __all__ = ["rmsnorm", "RMSNorm", "rope_angles", "apply_rope",
-           "blockwise_attention", "attend", "Attention", "SwiGLU", "Embed",
+           "blockwise_attention", "attend", "Attention", "SwiGLU", "MoE",
+           "moe", "moe_dense", "Embed",
            "embed_lookup", "unembed", "cross_entropy", "chunked_cross_entropy",
            "remat", "normal_"]
 
@@ -240,24 +252,30 @@ class Attention(nn.Module):
         normal_(self.wo, s / math.sqrt(2 * self.n_layers), generator)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, cfg,
-                causal: bool = True, cache: Optional[Cache] = None
+                causal: bool = True, cache: Optional[Cache] = None,
+                xattn_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
         """x (B, S, d); positions (B, S).  cache {"k", "v": (B, S_max, KV,
         hd), "len": 0-d int32}: a single token (S = 1) is written at
         ``len`` and attends over the cache; a prompt fills the cache from 0.
+        ``xattn_kv`` (k, v), each (B, S_src, KV, hd): cross-attention to
+        them, without RoPE or cache, on the plain path (layers.py:201-214).
         Returns (out (B, S, d), the cache with its new ``len``)."""
         b, s, _ = x.shape
         hd = cfg.resolved_head_dim
         h, kv = cfg.n_heads, cfg.n_kv_heads
         q = (x @ self.wq).reshape(b, s, h, hd)
-        k = (x @ self.wk).reshape(b, s, kv, hd)
-        v = (x @ self.wv).reshape(b, s, kv, hd)
-        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        if xattn_kv is not None:
+            k, v = xattn_kv
+        else:
+            k = (x @ self.wk).reshape(b, s, kv, hd)
+            v = (x @ self.wv).reshape(b, s, kv, hd)
+            cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
 
         new_cache = None
-        if cache is not None and s == 1:
+        if cache is not None and xattn_kv is None and s == 1:
             # decode: append at `len`, attend over the whole cache (masked)
             idx = cache["len"]
             ck, cv = cache["k"], cache["v"]
@@ -277,7 +295,7 @@ class Attention(nn.Module):
             out = torch.einsum("bkrqs,bskd->bqkrd", probs, cv.float())
             out = out.reshape(b, s, h, hd).to(x.dtype)
         else:
-            if cfg.use_flash and causal and s > 1:
+            if cfg.use_flash and xattn_kv is None and causal and s > 1:
                 out = kops.flash_attention(q, k, v, causal=True,
                                            window=cfg.window)
             else:
@@ -311,6 +329,127 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return (F.silu(x @ self.gate) * (x @ self.up)) @ self.down
+
+
+# -------------------------------------------------------------------- MoE
+class MoE(nn.Module):
+    """Routed experts: ``router`` (d, E) float32, ``gate``/``up`` (E, d, f)
+    and ``down`` (E, f, d) in the config's dtype.  ``forward`` returns
+    (out, aux loss) through ``moe``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.n_layers = cfg.n_layers
+        d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_ffn
+        dt = torch_dtype(cfg.dtype)
+        self.router = _param((d, e), torch.float32, device)
+        self.gate = _param((e, d, f), dt, device)
+        self.up = _param((e, d, f), dt, device)
+        self.down = _param((e, f, d), dt, device)
+
+    def reset_parameters(self, generator=None) -> None:
+        d, f = self.gate.shape[1], self.gate.shape[2]
+        for w in (self.router, self.gate, self.up):
+            normal_(w, 1.0 / math.sqrt(d), generator)
+        normal_(self.down, 1.0 / math.sqrt(f) / math.sqrt(2 * self.n_layers),
+                generator)
+
+    def forward(self, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+        return moe(self, cfg, x)
+
+
+def _route(p: MoE, cfg, xf: torch.Tensor):
+    """Router probabilities (..., E) and the top-k weights (renormalised)
+    and expert ids, float32.  ``torch.topk`` returns the k largest in
+    descending order, as ``jax.lax.top_k`` does."""
+    probs = torch.softmax(xf.float() @ p.router, dim=-1)
+    topw, topi = torch.topk(probs, cfg.top_k, dim=-1, sorted=True)
+    return probs, topw / topw.sum(dim=-1, keepdim=True), topi
+
+
+def _combine(topw: torch.Tensor, topi: torch.Tensor, e: int) -> torch.Tensor:
+    """Each token's weight per expert (..., E): the one-hot of its top-k
+    ids weighted and summed over k."""
+    return torch.sum(F.one_hot(topi, e).float() * topw[..., None], dim=-2)
+
+
+def _aux_loss(probs: torch.Tensor, comb: torch.Tensor, e: int) -> torch.Tensor:
+    """Load-balancing loss: E x sum over experts of (share of tokens routed
+    there) x (mean router probability)."""
+    dims = tuple(range(comb.dim() - 1))
+    density = torch.mean((comb > 0).float(), dim=dims)
+    mean_prob = torch.mean(probs, dim=tuple(range(probs.dim() - 1)))
+    return torch.sum(density * mean_prob) * e
+
+
+def moe_dense(p: MoE, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every token through every expert, masked by its routing weights
+    (layers.py:315-339): the oracle, and the path of tiny token counts.
+    Returns (out (B, S, d) in x's dtype, aux loss)."""
+    b, s, d = x.shape
+    e, f = cfg.n_experts, p.gate.shape[2]
+    probs, topw, topi = _route(p, cfg, x)
+    comb = _combine(topw, topi, e)                               # (B,S,E)
+    aux = _aux_loss(probs, comb, e)
+    # (n, d) @ (E, d, f) broadcasts to (E, n, f): the expert weights are
+    # read in place (an einsum would copy them into a (d, E*f) layout)
+    xe = x.to(torch_dtype(cfg.dtype)).reshape(b * s, d)
+    hg = torch.matmul(xe, p.gate)
+    hu = torch.matmul(xe, p.up)
+    h = F.silu(hg) * hu * comb.reshape(b * s, e).T.to(hg.dtype)[..., None]
+    # E and F contracted at once, as the reference's "bsef,efd->bsd"
+    out = h.permute(1, 0, 2).reshape(b * s, e * f) @ p.down.reshape(e * f, d)
+    return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def moe(p: MoE, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed MoE with the sorted, capacity-limited dispatch
+    (layers.py:348-400).  Returns (out (B, S, d) in x's dtype, aux loss).
+
+    The n*k (token, expert) entries are sorted by expert with a stable sort
+    (``jnp.argsort`` is stable, and the sort decides which tokens a full
+    expert drops); each expert takes at most ``ceil(n*k*capacity_factor /
+    E)`` in token order.  An entry past capacity is written to a spare row
+    ``cap`` that is sliced away (the reference's scatter drops it), and its
+    gather is clamped to row ``cap - 1`` and multiplied by 0, as the
+    reference's clamped gather is.  Outputs are added per token in float32
+    with ``index_add``.  ``moe_dispatch="dense"``, or n*k <= 4E, takes
+    ``moe_dense``; ``"a2a"`` falls through here: its expert-parallel
+    schedule needs a mesh (ROADMAP item 12)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    n = b * s
+    if cfg.moe_dispatch == "dense" or n * k <= 4 * e:
+        return moe_dense(p, cfg, x)
+    cap = max(1, int(math.ceil(n * k * cfg.capacity_factor / e)))
+    dt = torch_dtype(cfg.dtype)
+
+    xf = x.reshape(n, d)
+    probs, topw, topi = _route(p, cfg, xf)                       # (n, E), (n, k)
+    eid = topi.reshape(n * k)
+    w = topw.reshape(n * k)
+    tok = torch.arange(n * k, device=x.device) // k
+    order = torch.argsort(eid, stable=True)
+    eid_s, w_s, tok_s = eid[order], w[order], tok[order]
+
+    counts = torch.bincount(eid, minlength=e)
+    offsets = torch.cumsum(counts, dim=0) - counts
+    rank = torch.arange(n * k, device=x.device) - offsets[eid_s]
+    in_cap = rank < cap
+    rank_c = torch.where(in_cap, rank, cap)
+
+    xs = xf[tok_s].to(dt)
+    buf = torch.zeros((e, cap + 1, d), dtype=dt, device=x.device)
+    buf = buf.index_put((eid_s, rank_c), xs)[:, :cap]            # (E, cap, d)
+    h = F.silu(torch.bmm(buf, p.gate)) * torch.bmm(buf, p.up)
+    o = torch.bmm(h, p.down)                                     # (E, cap, d)
+
+    gathered = o[eid_s, torch.clamp(rank_c, max=cap - 1)]
+    contrib = gathered * (w_s * in_cap)[:, None].to(o.dtype)
+    y = torch.zeros((n, d), dtype=torch.float32, device=x.device).index_add(
+        0, tok_s, contrib.float())
+    aux = _aux_loss(probs, _combine(topw, topi, e), e)
+    return y.reshape(b, s, d).to(x.dtype), aux
 
 
 # ------------------------------------------------------------- embeddings

@@ -6,8 +6,9 @@ module, parameters uninitialised), ``init(cfg, generator, device)``,
 ``loss_fn(model, cfg, batch)``, ``init_cache(cfg, batch, max_len, dtype,
 device)``, ``prefill(model, cfg, batch, cache)`` and ``decode_step(model,
 cfg, token, cache)``, so the trainer and the serving engine are
-family-agnostic.  The dense and ssm families are ported;
-the others raise ``NotImplementedError`` naming their ROADMAP item.
+family-agnostic.  The vlm and encdec families take their stub frontends'
+inputs through the batch: ``vision_embeds`` (B, V, d) and ``frames`` (B,
+S_src, d).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict
 
-from . import ssm, transformer
+from . import encdec, hybrid, ssm, transformer
 
 __all__ = ["Family", "get_family"]
 
@@ -32,34 +33,39 @@ class Family:
 
 
 def _tfm_prefill(model, cfg, batch, cache):
-    return transformer.prefill(model, cfg, batch["tokens"], cache)
+    return transformer.prefill(model, cfg, batch["tokens"], cache,
+                               prefix_embeds=batch.get("vision_embeds"))
 
 
 def _ssm_prefill(model, cfg, batch, cache):
     return ssm.prefill(model, cfg, batch["tokens"], cache)
 
 
-_FAMILIES: Dict[str, Family] = {
-    "dense": Family("dense", transformer.Transformer, transformer.init,
-                    transformer.loss_fn, transformer.init_cache, _tfm_prefill,
-                    transformer.decode_step),
-    "ssm": Family("ssm", ssm.MambaLM, ssm.init, ssm.loss_fn, ssm.init_cache,
-                  _ssm_prefill, ssm.decode_step),
-}
+def _hyb_prefill(model, cfg, batch, cache):
+    return hybrid.prefill(model, cfg, batch["tokens"], cache)
 
-_NOT_YET = {
-    "moe": "ROADMAP Queue 1 items 9-10 (layers.moe, moe_a2a)",
-    "vlm": "ROADMAP Queue 1 item 9 (the vision prefix of transformer.forward)",
-    "hybrid": "ROADMAP Queue 1 item 10 (models/hybrid.py, layers.attend/"
-              "blockwise_attention)",
-    "encdec": "ROADMAP Queue 1 item 10 (models/encdec.py)",
+
+def _enc_prefill(model, cfg, batch, cache):
+    return encdec.prefill(model, cfg, batch["tokens"], cache,
+                          frames=batch["frames"])
+
+
+_FAMILIES: Dict[str, Family] = {
+    fam: Family(fam, cls, mod.init, mod.loss_fn, mod.init_cache, pre,
+                mod.decode_step)
+    for fam, mod, cls, pre in (
+        ("dense", transformer, transformer.Transformer, _tfm_prefill),
+        ("moe", transformer, transformer.Transformer, _tfm_prefill),
+        ("vlm", transformer, transformer.Transformer, _tfm_prefill),
+        ("ssm", ssm, ssm.MambaLM, _ssm_prefill),
+        ("hybrid", hybrid, hybrid.HybridLM, _hyb_prefill),
+        ("encdec", encdec, encdec.EncDec, _enc_prefill),
+    )
 }
 
 
 def get_family(cfg) -> Family:
-    if cfg.family in _FAMILIES:
+    try:
         return _FAMILIES[cfg.family]
-    if cfg.family in _NOT_YET:
-        raise NotImplementedError(f"the {cfg.family} family is not ported yet: "
-                                  f"{_NOT_YET[cfg.family]}")
-    raise ValueError(f"unknown model family {cfg.family!r}")
+    except KeyError:
+        raise ValueError(f"unknown model family {cfg.family!r}") from None

@@ -102,11 +102,26 @@ class Engine:
                 tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
                                          device=self.device)
                 logits, cache = self.fam.prefill(self.params, self.cfg,
-                                                 {"tokens": tokens}, cache)
+                                                 self._batch(tokens), cache)
                 tok = self._sample(logits[:, -1], req.temperature)
                 req.out_tokens.append(int(tok[0]))
                 req.t_first = time.monotonic()
                 self._caches[slot] = (cache, tok)
+
+    def _batch(self, tokens: torch.Tensor) -> dict:
+        """The prompt and, as the reference engine gives them, zero stub
+        inputs of the frontends the port does not model: ``vision_embeds``
+        (1, vision_tokens, d) for vlm, ``frames`` (1, source_len, d) for
+        encdec, in the config's dtype."""
+        batch = {"tokens": tokens}
+        cfg, dt = self.cfg, torch_dtype(self.cfg.dtype)
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = torch.zeros(
+                (1, cfg.vision_tokens, cfg.d_model), dtype=dt, device=self.device)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros(
+                (1, cfg.source_len, cfg.d_model), dtype=dt, device=self.device)
+        return batch
 
     def _sample(self, logits: torch.Tensor, temperature: float) -> np.ndarray:
         logits = logits.float().cpu().numpy()

@@ -35,7 +35,7 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Tuple
 import torch
 from torch import nn
 
-from ..convert import torch_dtype
+from ..convert import reference_leaf, torch_dtype
 
 __all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update",
            "cosine_lr", "global_norm", "clip_by_global_norm",
@@ -71,11 +71,10 @@ def _named(params: Any) -> Dict[str, torch.Tensor]:
 def reference_key(name: str) -> Tuple[Tuple[str, ...], bool]:
     """(the reference leaf's path, whether it is stacked over layers) of
     port parameter ``name``: ``layers.3.attn.wq`` -> (("layers", "attn",
-    "wq"), True); ``ln_f.scale`` -> (("ln_f", "scale"), False)."""
-    parts = name.split(".")
-    if len(parts) > 2 and parts[0] == "layers" and parts[1].isdigit():
-        return ("layers",) + tuple(parts[2:]), True
-    return tuple(parts), False
+    "wq"), True); ``dec.1.ln3.scale`` -> (("dec", "ln3", "scale"), True);
+    ``shared.ln1.scale`` -> (("shared", "ln1", "scale"), False)."""
+    path, layer = reference_leaf(name)
+    return tuple(path.split(".")), layer is not None
 
 
 def decays(name: str, t: torch.Tensor) -> bool:
@@ -90,7 +89,7 @@ def reference_order(names) -> List[List[str]]:
     groups: Dict[Tuple[str, ...], List[str]] = {}
     for n in names:
         groups.setdefault(reference_key(n)[0], []).append(n)
-    layer = lambda n: int(n.split(".")[1]) if reference_key(n)[1] else 0  # noqa: E731
+    layer = lambda n: reference_leaf(n)[1] or 0  # noqa: E731
     return [sorted(groups[k], key=layer) for k in sorted(groups)]
 
 

@@ -16,7 +16,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.models.registry import get_family as j_get_family  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.convert import params_from_reference  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.registry import get_family  # noqa: E402
@@ -111,15 +112,20 @@ def test_port_init_draws_the_reference_shapes_from_a_generator():
             assert torch.isfinite(pa).all(), name
 
 
-@pytest.mark.parametrize("arch,match", [
-    ("phi3.5-moe-42b-a6.6b", "ROADMAP Queue 1 item"),
-    ("zamba2-2.7b", "ROADMAP Queue 1 item 10"),
-    ("whisper-base", "ROADMAP Queue 1 item 10"),
-    ("internvl2-76b", "ROADMAP Queue 1 item 9"),
-])
-def test_unported_families_name_their_roadmap_item(arch, match):
-    with pytest.raises(NotImplementedError, match=match):
-        get_family(get_config(arch, reduced=True))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_builds_with_the_reference_names_and_shapes(arch):
+    """``get_family`` builds each of the ten archs, and the port's model
+    has exactly the reference's parameters, unstacked (``layers.<i>``,
+    ``enc.<i>``, ``dec.<i>``; the hybrid's ``shared`` block as it is), with
+    their shapes and dtypes."""
+    cfg = get_config(arch, reduced=True)
+    jtree = jax.tree.map(np.asarray, j_get_family(cfg).init(jax.random.PRNGKey(0), cfg))
+    want = {n: (tuple(a.shape), np.dtype(a.dtype).name)
+            for n, a in convert._unstack(jtree).items()}
+    model = get_family(cfg).model(cfg, CPU)
+    got = {n: (tuple(p.shape), str(p.dtype).removeprefix("torch."))
+           for n, p in model.named_parameters()}
+    assert got == want
 
 
 @pytest.mark.parametrize("policy", ["full", "dots"])
