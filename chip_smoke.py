@@ -111,7 +111,37 @@ JSON line and any failure exiting non-zero:
    the wall time of one more AdamW update (on zero gradients).  (c) Each autograd
    Function's gradients of sum(out^2) against autograd through the plain
    op on the card at 2e-4 in float32: K3 at the serving shape, K4 at
-   S = 2048.
+   S = 2048;
+10. ensemble -- ``examples/torch_nucleation_ensemble.py``'s own ``run`` on
+   ``cuda:0``: 8 ``freeze`` x 8 ``detector`` instances (``nwriters: 1``,
+   stateless detectors relaunched per snapshot) of 4096 atoms for 10
+   steps, then 1 instance at the same size.  Gates: every (instance, step)
+   reached its own instance's detector exactly once, every nucleated count
+   equals a plain recount (the same generators replayed through
+   ``md_step`` in a loop on the card, compared exactly), every detector
+   input on the card.  Printed: wall per step at 8 and at 1 instance, their
+   ratio (recorded, not gated: the instances share one card and one
+   interpreter) and peak memory;
+11. scheduler -- ``examples/torch_cosmology_scheduler.py``'s ``run`` on
+   ``cuda:0`` at the 256^3 field of phase 3, 12 snapshots (``policy:
+   fair``, reeber ``weight: 3`` with ``autotune: {min: 1, max: 4}``,
+   spectrum ``weight: 1``).  Gates: both consumers analysed 12 of 12,
+   every halo count and mean density equal to a plain recount of the same
+   field on the card, a telemetry timeline with at least one sample,
+   reeber's final depth in [1, 4], every payload on the card.  Printed:
+   wall per snapshot, each edge's prefetch hits and misses (its preps) and
+   blocked seconds, the final depths and ``transport_stats()`` copies and
+   bytes;
+12. analysis -- in fresh interpreters that import no JAX: ``python -m
+   repro_torch.analysis check`` on the workflow documents of phases 3, 8,
+   10 and 11 (no error-level finding), ``lint`` on the port's core, and
+   ``plancheck.verify_plan`` over every plan the plan cache held after
+   phases 3 and 11 (the plans whose tiles K1/K2 ran), rebuilt from their
+   keys and held to the same transfers: zero findings on the dst ranks each
+   plan ran.  A plan that reshards a received slab runs only the ranks
+   inside the slab, so its other ranks are left out of the gate (the
+   verifier reports them as never written, in both packages) and their
+   findings are printed as ``findings_unrun_ranks``.
 
 The lines before the last are the whole run's wall time (builds included),
 the per-kernel summary and the card's name and power limit; the last line
@@ -135,7 +165,8 @@ import time
 import numpy as np
 import torch
 
-SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
 SHAPE = (256, 256, 256)      # one 64 MiB float32 density field
 STEPS = 8
 N_PROD = 4
@@ -197,6 +228,9 @@ GATE_LAYERS, GATE_BATCH = 2, 1
 LOSS_LIMIT = 1e-5            # kernel vs plain path, float32, relative
 GRAD_LIMIT = 1e-4            # relative L2, every parameter
 FN_GRAD_TOL = 2e-4           # each Function vs the plain op (test_kernels.py)
+# phases 10 and 11: the two use cases at the field size of phase 3
+ENS_INSTANCES, ENS_ATOMS, ENS_STEPS = 8, 4096, 10
+SCHED_SNAPSHOTS = 12
 # phase 8: the fault-tolerance runs
 FAULT_SNAPSHOTS = 8
 THRESHOLD = 1.01             # a halo cell: density above this
@@ -276,6 +310,20 @@ def check_kernels(ops, ref, build, dev) -> float:
 
 
 # --------------------------------------------------------------- phase 3
+def workflow_doc():
+    return {"tasks": [
+        {"func": "nyx", "taskCount": N_PROD, "nprocs": 1,
+         "outports": [{"filename": "plt.h5",
+                       "dsets": [{"name": "/density", "memory": 1}]}]},
+        {"func": "reeber", "taskCount": 2, "nprocs": 2,
+         "inports": [{"filename": "plt.h5", "redistribute": 1,
+                      "dsets": [{"name": "/density", "memory": 1}]}]},
+        {"func": "viz", "taskCount": 2, "nprocs": 2,
+         "inports": [{"filename": "plt.h5", "redistribute": {"axis": 1},
+                      "dsets": [{"name": "/density", "memory": 1}]}]},
+    ]}
+
+
 def workflow(core, dev, seed: int, verify: bool):
     from repro_torch.core.datamodel import BlockOwnership
     from repro_torch.core.redistribute import even_blocks
@@ -287,17 +335,7 @@ def workflow(core, dev, seed: int, verify: bool):
     calls = {"reeber": 0, "viz": 0}
     failures = []
     lock = threading.Lock()
-    cfg = {"tasks": [
-        {"func": "nyx", "taskCount": N_PROD, "nprocs": 1,
-         "outports": [{"filename": "plt.h5",
-                       "dsets": [{"name": "/density", "memory": 1}]}]},
-        {"func": "reeber", "taskCount": 2, "nprocs": 2,
-         "inports": [{"filename": "plt.h5", "redistribute": 1,
-                      "dsets": [{"name": "/density", "memory": 1}]}]},
-        {"func": "viz", "taskCount": 2, "nprocs": 2,
-         "inports": [{"filename": "plt.h5", "redistribute": {"axis": 1},
-                      "dsets": [{"name": "/density", "memory": 1}]}]},
-    ]}
+    cfg = workflow_doc()
 
     def nyx(comm):
         gen = torch.Generator(device=comm.device).manual_seed(seed * 100 + comm.instance)
@@ -969,14 +1007,9 @@ def plain_recount(dev, seed):
     return counts
 
 
-def fault_run(core, build, dev, seed, faults, spill_dir):
-    """One run of phase 8's workflow; returns its report, reeber's counts
-    (rows x snapshots, concatenated over the final instances) and what the
-    tasks measured."""
-    from repro_torch.core.redistribute import even_blocks
-
+def fault_doc():
     port = [{"filename": "plt*.h5", "dsets": [{"name": "/density", "memory": 1}]}]
-    cfg = {"tasks": [
+    return {"tasks": [
         {"func": "nyx", "nprocs": 1,
          "on_failure": {"restart": {"max_retries": 3}}, "outports": port},
         {"func": "reeber", "taskCount": 2, "nprocs": 2,
@@ -986,6 +1019,15 @@ def fault_run(core, build, dev, seed, faults, spill_dir):
         {"func": "viz", "nprocs": 2, "on_failure": "drop",
          "inports": [dict(port[0], io_freq=2, redistribute={"axis": 1})]},
     ]}
+
+
+def fault_run(core, build, dev, seed, faults, spill_dir):
+    """One run of phase 8's workflow; returns its report, reeber's counts
+    (rows x snapshots, concatenated over the final instances) and what the
+    tasks measured."""
+    from repro_torch.core.redistribute import even_blocks
+
+    cfg = fault_doc()
     lock = threading.Lock()
     got = {"calls": {"reeber": 0, "viz": 0}, "blocks": {"reeber": 0, "viz": 0},
            "ckpt_s": [], "ckpt_bytes": 0, "restored_at": None, "counts": {}}
@@ -1392,6 +1434,238 @@ def train_phase(build, ops, ref, dev, seed):
     return launches
 
 
+# --------------------------------------------------------------- phase 10
+def example(name):
+    """One of the port's examples, imported from ``examples/``."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_smoke_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ensemble_phase(dev, seed):
+    """Phase 10: the nucleation ensemble at ENS_INSTANCES and at 1 instance,
+    each count held to a plain recount on the card."""
+    ens = example("torch_nucleation_ensemble")
+    t_phase = time.perf_counter()
+    plain = {}
+    t0 = time.perf_counter()
+    for i in range(ENS_INSTANCES):
+        for t, pos in ens.trajectory(i, ENS_ATOMS, ENS_STEPS, dev, seed):
+            plain[(i, t)] = ens.diamond_detector(pos)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0    # the same work in one thread
+    plain = {k: int(v) for k, v in plain.items()}
+    rows, problems = {}, []
+    for n in (ENS_INSTANCES, 1):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        detections, report = ens.run(instances=n, atoms=ENS_ATOMS,
+                                     steps=ENS_STEPS, device=dev, seed=seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = {(i, t) for i in range(n) for t in range(ENS_STEPS)}
+        if set(detections) != want:
+            problems.append(f"{n} instances: delivered {sorted(detections)}")
+        wrong = [k for k, (c, _) in detections.items() if c != plain[k]]
+        if wrong:
+            problems.append(f"{n} instances: counts differ from the plain "
+                            f"recount at {wrong[:5]}")
+        off = [k for k, (_, d) in detections.items() if not d.startswith("cuda")]
+        if off:
+            problems.append(f"{n} instances: detector inputs off the card {off[:5]}")
+        rows[n] = {"instances": n, "wall_s": wall,
+                   "wall_s_per_step": wall / ENS_STEPS,
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "served": report.total_served,
+                   "detector_launches": sum(
+                       v for (task, _), v in report.task_launches.items()
+                       if task == "detector"),
+                   "nucleated": [detections[(i, ENS_STEPS - 1)][0]
+                                 for i in range(n)]}
+        emit({"phase": "ensemble_run", **rows[n]})
+    emit({"phase": "ensemble", "atoms": ENS_ATOMS, "steps": ENS_STEPS,
+          "plain_recount_equal": not any("recount" in p for p in problems),
+          "wall_ratio_8_to_1": (rows[ENS_INSTANCES]["wall_s_per_step"]
+                                / rows[1]["wall_s_per_step"]),
+          "plain_loop_s_per_step": plain_s / ENS_STEPS,
+          "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return ens.workflow(ENS_INSTANCES)
+
+
+# --------------------------------------------------------------- phase 11
+def scheduler_phase(dev, seed):
+    """Phase 11: the fair-scheduled cosmology workflow at 256^3, each
+    analysis held to a plain recount of the same field on the card."""
+    import tempfile
+
+    from repro_torch.core.datamodel import reset_transport_stats, transport_stats
+    from repro_torch.core.redistribute import plan_cache, reset_plan_cache
+
+    sched = example("torch_cosmology_scheduler")
+    t_phase = time.perf_counter()
+    grid = SHAPE[0]
+    reset_plan_cache()
+    reset_transport_stats()
+    timeline = os.path.join(tempfile.gettempdir(), "smoke_timeline.json")
+    t0 = time.perf_counter()
+    analysed, report = sched.run(grid=grid, count=SCHED_SNAPSHOTS, device=dev,
+                                 seed=seed, timeline=timeline, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = transport_stats().snapshot()
+    plans = plan_descriptors(plan_cache())
+    problems = []
+    for t, field in sched.snapshots(grid, SCHED_SNAPSHOTS, dev, seed):
+        want = {"reeber": sched.find_halos(field).item(),
+                "spectrum": sched.mean_density(field).item()}
+        for task, value in want.items():
+            got = analysed.get((task, t))
+            if got is None or got[0] != value:
+                problems.append(f"{task} step {t}: {got} != plain {value}")
+    off = [k for k, (_, d) in analysed.items() if not d.startswith("cuda")]
+    if off:
+        problems.append(f"payloads off the card: {off[:5]}")
+    if len(report.timeline) < 1:
+        problems.append("the telemetry timeline holds no sample")
+    depths = report.scheduler["depths"]
+    reeber = [d for e, d in depths.items() if "reeber" in e]
+    if len(reeber) != 1 or not 1 <= reeber[0] <= 4:
+        problems.append(f"reeber's final depth {depths}")
+    edges = {}
+    for ch in report.channels:
+        s = ch.stats_snapshot()
+        edges[ch.name] = {k: s[k] for k in (
+            "served", "prefetch_hits", "prefetch_misses", "prefetch_blocked_s")}
+        edges[ch.name]["weight"] = ch.weight
+    emit({"phase": "scheduler", "grid": grid, "snapshots": SCHED_SNAPSHOTS,
+          "analysed": {task: sum(1 for k in analysed if k[0] == task)
+                       for task in ("reeber", "spectrum")},
+          "plain_recount_equal": not any("plain" in p for p in problems),
+          "wall_s": wall, "wall_s_per_snapshot": wall / SCHED_SNAPSHOTS,
+          "edges": edges, "depths": depths,
+          "decisions": len(report.scheduler["decisions"]),
+          "timeline_samples": len(report.timeline),
+          "copies": stats["copies"], "bytes_copied": stats["bytes_copied"],
+          "redist_shipped_bytes": stats["redist_shipped_bytes"],
+          "plans": len(plans), "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return sched.WORKFLOW, plans
+
+
+# --------------------------------------------------------------- phase 12
+def plan_descriptors(cache):
+    """Every plan in the plan cache as JSON: its key and its transfers."""
+    with cache._lock:
+        plans = list(cache._plans.values())
+    return [{"src": [list(map(list, b)) for b in p.src],
+             "dst": [list(map(list, b)) for b in p.dst],
+             "shape": list(p.shape), "dtype": str(p.dtype),
+             "per_dst": [[[t.src_rank, t.dst_rank, list(t.global_starts),
+                           list(t.shape)] for t in d] for d in p.per_dst]}
+            for p in plans]
+
+
+_ANALYSIS_PROBE = """
+import json, math, sys, types
+from repro_torch.analysis import plancheck
+from repro_torch.core.redistribute import CompiledPlan, intersect
+plans = json.load(open(sys.argv[1]))
+out = []
+for p in plans:
+    box = lambda b: (tuple(b[0]), tuple(b[1]))
+    plan = CompiledPlan([box(b) for b in p["src"]], [box(b) for b in p["dst"]],
+                        tuple(p["shape"]), p["dtype"])
+    same = [[[t.src_rank, t.dst_rank, list(t.global_starts), list(t.shape)]
+             for t in d] for d in plan.per_dst] == p["per_dst"]
+    # a reshard of a received slab plans from the slab alone and runs only
+    # the dst ranks inside it (comm.reshard refuses any other): verify those
+    ranks = range(len(plan.dst))
+    vol = sum(math.prod(b[1]) for b in plan.src)
+    if vol < math.prod(plan.shape):
+        ranks = [r for r, d in enumerate(plan.dst)
+                 if any(intersect(d, s) == d for s in plan.src)]
+    ran = types.SimpleNamespace(shape=plan.shape, src=plan.src,
+                                dst=[plan.dst[r] for r in ranks],
+                                per_dst=[plan.per_dst[r] for r in ranks])
+    out.append({"same_transfers": same, "ranks": len(plan.dst),
+                "ranks_run": len(ranks),
+                "findings": [d.code for d in plancheck.verify_plan(ran)],
+                "findings_whole_plan": [d.code for d in
+                                        plancheck.verify_plan(plan)]})
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
+print(json.dumps({"plans": out, "foreign_modules": bad}))
+"""
+
+
+def analysis_phase(docs, plans):
+    """Phase 12: ``python -m repro_torch.analysis check`` on the workflow
+    documents of phases 3, 8, 10 and 11, ``lint`` on the port's core, and
+    ``plancheck.verify_plan`` over the plans K1/K2 ran, each in a fresh
+    interpreter that imports no JAX."""
+    import tempfile
+
+    import yaml
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    problems, results = [], {}
+    with tempfile.TemporaryDirectory(prefix="smoke_analysis_") as d:
+        paths = []
+        for name, doc in docs.items():
+            path = os.path.join(d, f"{name}.yaml")
+            with open(path, "w") as f:
+                f.write(doc if isinstance(doc, str) else yaml.safe_dump(doc))
+            paths.append(path)
+        plan_file = os.path.join(d, "plans.json")
+        with open(plan_file, "w") as f:
+            json.dump(plans, f)
+        for tag, argv in (("check", ["-m", "repro_torch.analysis", "check",
+                                     "--json", *paths]),
+                          ("lint", ["-m", "repro_torch.analysis", "lint",
+                                    "--json"]),
+                          ("plancheck", ["-c", _ANALYSIS_PROBE, plan_file])):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, *argv], env=env, cwd=ROOT,
+                                 capture_output=True, text=True, timeout=300)
+            res = {"rc": out.returncode, "s": time.perf_counter() - t0}
+            if tag == "plancheck":
+                doc = json.loads(out.stdout.strip().splitlines()[-1]) \
+                    if out.returncode == 0 else {}
+                ps = doc.get("plans", [])
+                res.update(plans=len(ps),
+                           slab_plans=sum(p["ranks_run"] < p["ranks"] for p in ps),
+                           ranks_verified=sum(p["ranks_run"] for p in ps),
+                           findings=sum(len(p["findings"]) for p in ps),
+                           findings_unrun_ranks=sum(len(p["findings_whole_plan"])
+                                                    for p in ps))
+                if (out.returncode or not doc["plans"] or res["findings"]
+                        or not all(p["same_transfers"] for p in doc["plans"])
+                        or doc["foreign_modules"]):
+                    problems.append(f"plancheck: {out.stdout[-400:]} {out.stderr[-400:]}")
+            else:
+                doc = json.loads(out.stdout) if out.stdout.strip() else {}
+                counts = doc.get("counts", {})
+                res.update(findings=counts.get("total"), errors=counts.get("error"))
+                if out.returncode or counts.get("error", 1):
+                    problems.append(f"{tag}: rc {out.returncode}: "
+                                    f"{out.stdout[-400:]} {out.stderr[-400:]}")
+            results[tag] = res
+    emit({"phase": "analysis", "documents": sorted(docs), **results,
+          "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1402,8 +1676,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        print(f"chip_smoke: no repro_torch package under {SRC}", file=sys.stderr)
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")) or not os.path.isdir(
+            os.path.join(ROOT, "examples")):
+        print(f"chip_smoke: no repro_torch package under {SRC} or no "
+              f"examples beside it", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
     import repro_torch.core as core
@@ -1449,6 +1725,7 @@ def main() -> int:
                         f"numpy={stats['reshard_numpy']} for {n_calls} calls")
     if min(launches.get(k, 0) for k in ("pack_blocks", "pack_cols")) <= 0:
         problems.append(f"a kernel never launched on the main path: {launches}")
+    main_plans = plan_descriptors(plan_cache())
     emit({"phase": "main_path", "served": report.total_served,
           "reshard_calls": calls, "reshard_pack": stats["reshard_pack"],
           "reshard_numpy": stats["reshard_numpy"], "launches": launches,
@@ -1490,6 +1767,11 @@ def main() -> int:
 
     faults_launches = faults_phase(core, build, dev, args.seed)
     train_launches = train_phase(build, ops, ref, dev, args.seed)
+    ensemble_doc = ensemble_phase(dev, args.seed)
+    scheduler_doc, scheduler_plans = scheduler_phase(dev, args.seed)
+    analysis_phase({"main_path": workflow_doc(), "faults": fault_doc(),
+                    "ensemble": ensemble_doc, "scheduler": scheduler_doc},
+                   main_plans + scheduler_plans)
 
     kernels = time_kernels(pack, ops, ref, dev, rates[0], launches, STEPS, worst)
     for k in kernels:

@@ -1,17 +1,32 @@
-"""Validation and concurrency-checking support used by the core modules.
+"""Pre-run static analysis for Wilkins workflows and the core transport.
 
-``analysis.rules`` is the validation registry ``core.graph`` and the driver
-call into at parse time; ``analysis.lockcheck`` holds the lock factories
-and the opt-in (``WILKINS_LOCKCHECK=1``) runtime lock-order checker;
-``analysis.diagnostics`` is the findings framework both report through.
-Submodules resolve lazily so importing one never drags in the others.
+Two passes over one diagnostics framework (``analysis.diagnostics``):
+
+* ``analysis.workflow`` -- the offline workflow-graph analyzer
+  (``python -m repro_torch.analysis check workflow.yaml``): deadlock
+  cycles, flow-control hazards, decomposition legality, policy legality,
+  and (with dset ``shape:`` hints) reshard-plan coverage (``plancheck``).
+* ``analysis.astlint`` + ``analysis.lockcheck`` -- the concurrency
+  checker: an AST lint enforcing the codified lock discipline over
+  ``src/repro_torch/core/`` (``python -m repro_torch.analysis lint``), and
+  an opt-in (``WILKINS_LOCKCHECK=1``) runtime recorder of the cross-thread
+  lock-acquisition graph.
+
+The schedule explorer (``analysis.explore`` in the JAX package) is not
+ported yet: with ``WILKINS_EXPLORE=1`` the lock factories raise.
+
+``analysis.rules`` is the validation registry ``core.graph`` and the
+driver call into at parse time.  Submodules resolve lazily, so importing
+one never drags in the others (the analyzer itself imports
+``core.graph``).
 """
 
 from __future__ import annotations
 
 import importlib
 
-__all__ = ["rules", "diagnostics", "lockcheck"]
+__all__ = ["rules", "diagnostics", "workflow", "astlint", "lockcheck",
+           "plancheck", "cli"]
 
 
 def __getattr__(name):

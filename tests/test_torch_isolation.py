@@ -37,7 +37,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     expected = {
         "repro_torch.convert",
         "repro_torch.analysis.diagnostics", "repro_torch.analysis.lockcheck",
-        "repro_torch.analysis.rules",
+        "repro_torch.analysis.rules", "repro_torch.analysis.workflow",
+        "repro_torch.analysis.plancheck", "repro_torch.analysis.astlint",
+        "repro_torch.analysis.cli", "repro_torch.analysis.__main__",
         "repro_torch.obs.recorder", "repro_torch.obs.critical",
         "repro_torch.obs.export",
         "repro_torch.kernels.pack", "repro_torch.kernels.ops",
@@ -84,6 +86,44 @@ def test_restore_imports_only_the_checkpoint_module():
     new = json.loads(out.stdout.strip().splitlines()[-1])
     assert [m for m in new if m.startswith("repro_torch")] == \
         ["repro_torch.train", "repro_torch.train.checkpoint"]
+
+
+_BLOCKED_CLI = """
+import importlib.abc, runpy, sys
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+sys.argv = ["python -m repro_torch.analysis"] + sys.argv[1:]
+try:
+    runpy.run_module("repro_torch.analysis", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    print("RC", e.code)
+"""
+
+
+@pytest.mark.parametrize("argv", [
+    ["check", "examples/torch_quickstart.py"],
+    ["lint"],
+])
+def test_analysis_cli_runs_with_jax_and_reference_unimportable(argv):
+    """``python -m repro_torch.analysis check|lint`` in a fresh interpreter
+    whose import system refuses ``jax``, ``ml_dtypes`` and ``repro``."""
+    repo = os.path.abspath(os.path.join(SRC, ".."))
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_CLI, *argv], env=env,
+                         cwd=repo, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "RC 0", out.stdout + out.stderr
+    assert "no findings" in lines
 
 
 def test_port_sources_name_no_jax_import():
