@@ -70,7 +70,8 @@ JSON line and any failure exiting non-zero:
    models for K3 bf16 and K4 (``launches_by_arch`` splits them), phase 6's
    float32 gates for K3 float32; K1/K2 also carry their launches in each
    run of phase 8 (``launches_faults``), K3 bf16 and K4 in phase 9's
-   training steps (``launches_train``);
+   training steps (``launches_train``), K3 float32 in phase 14 (b)'s
+   forward (``launches_parallel``);
 8. faults -- checkpointed restart and elastic rescale on ``cuda:0`` at the
    field size of phase 3: one ``nyx`` evolves a 256^3 float32 density (from
    ``--seed``) through 8 snapshots with a torch diffusion step and
@@ -141,7 +142,31 @@ JSON line and any failure exiting non-zero:
    plan ran.  A plan that reshards a received slab runs only the ranks
    inside the slab, so its other ranks are left out of the gate (the
    verifier reports them as never written, in both packages) and their
-   findings are printed as ``findings_unrun_ranks``.
+   findings are printed as ``findings_unrun_ranks``;
+13. explore -- three fresh interpreters at once: ``python -m
+   repro_torch.analysis explore --json`` with the scenarios' payloads
+   (``torch.int32`` tensors adopted in place) on ``cuda:0``, the same with
+   ``--device cpu``, and the port's seeded races
+   (``tests/analysis_fixtures/races_torch/``, the tensor-view race on the
+   card).  Gates: every scenario's (schedules, pruned, steps) equal on
+   both devices and to ``EXPLORE_COUNTS``, the JAX package's counts for
+   its corpus with device payloads adopted in place; zero findings; each
+   race found with its code and schedule ID (``RACE_IDS``, the JAX
+   package's for the five races both carry).  Printed: each run's wall;
+14. parallel -- a world-size-1 NCCL group and a (1, 1) ``("data",
+   "model")`` host mesh on ``cuda:0`` under ``RULE_VARIANTS["moe_a2a"]``:
+   (a) one phi3.5-moe MoE layer at full width (d 4096, 16 experts, top-2,
+   f 6400), float32 weights (5.0 GB), ``capacity_factor`` 8.0 (nothing
+   dropped), 2 x 2048 tokens through the expert-parallel schedule: one
+   call of it, its output within 2e-4 and its gradients within 5e-4 /
+   5e-3 of ``moe_dense``'s; (b) phi3.5-moe at full width and 2 of 32
+   layers, float32, ``use_flash``, ``moe_dispatch="a2a"``: logits within
+   1e-4 relative L2 of ``"dense"``'s, 2 schedule calls and 2 K3 launches
+   in the forward (counts set to 0 just before it, read just after);
+   (c) ``repro_torch.launch.train``'s ``main``, 2 steps of llama3.2-3b at
+   full width and 2 layers, batch 2 x 2048, through the host mesh and
+   ``shard_batch``: its losses within 1e-5 of the same steps of the
+   trainer with no mesh.  Printed: each part's seconds and peak memory.
 
 The lines before the last are the whole run's wall time (builds included),
 the per-kernel summary and the card's name and power limit; the last line
@@ -231,6 +256,38 @@ FN_GRAD_TOL = 2e-4           # each Function vs the plain op (test_kernels.py)
 # phases 10 and 11: the two use cases at the field size of phase 3
 ENS_INSTANCES, ENS_ATOMS, ENS_STEPS = 8, 4096, 10
 SCHED_SNAPSHOTS = 12
+# phase 13: the explorer's clean corpus at the CLI's budget (256 schedules)
+# -- [schedules, pruned, steps] per scenario, which the JAX package's
+# explorer gives for its corpus with device payloads adopted in place
+# (``tests/test_torch_explore.py`` holds the port and these numbers to it)
+EXPLORE_COUNTS = {
+    "rendezvous_depth1": [256, 79, 22193], "latest_fanin": [171, 64, 8728],
+    "crash_replay": [256, 117, 30814], "traced_rendezvous": [256, 130, 28011],
+    "rescale_window": [256, 189, 17854], "sem_resize": [256, 90, 6326],
+    "cow_share": [20, 13, 285]}
+# phase 13: each seeded race of the port: its code and the schedule ID that
+# finds it (the JAX package's, for the five races both packages carry)
+RACE_IDS = {
+    "wlk320_tensor_view": ("WLK320", "wlk320_tensor_view@s1.0"),
+    "wlk320_torn_capture": ("WLK320", "wlk320_torn_capture@s1.0"),
+    "wlk320_torn_stats": ("WLK320", "wlk320_torn_stats@s1.0-s2.0"),
+    "wlk321_lock_order": ("WLK321", "wlk321_lock_order@s1.0-s2.1-s3.1-s4.1"),
+    "wlk322_notify_outside_lock": (
+        "WLK322", "wlk322_notify_outside_lock@s1.0-s2.0-s3.1-s4.1"),
+    "wlk323_missed_epoch_dedup": (
+        "WLK323", "wlk323_missed_epoch_dedup@s1.0-s2.0-s3.0-s4.0-s5.0-s6.0-"
+        "s7.1-s8.1-s9.1-s10.1-s11.1-s12.1-s13.1-s18.0-s19.0-s21.0-s22.0-"
+        "s24.0-s25.0-s27.0")}
+# phase 14: the parallel layer on a world-size-1 NCCL group, (1, 1) mesh
+PAR_ARCH = "phi3.5-moe-42b-a6.6b"
+PAR_BATCH, PAR_SEQ = 2, 2048          # (a): the MoE layer's tokens
+PAR_LAYERS = 2                        # (b): 2 of phi3.5-moe's 32 layers
+PAR_CAPACITY = 8.0                    # drops nothing at 16 experts, top-2
+PAR_OUT_TOL = 2e-4                    # (a) output, as tests/test_moe_a2a.py
+PAR_GRAD_TOL = (5e-4, 5e-3)           # (a) gradients: atol, rtol
+PAR_LOGITS_LIMIT = 1e-4               # (b) relative L2
+PAR_TRAIN_ARCH, PAR_TRAIN_STEPS = "llama3.2-3b", 2
+PAR_LOSS_LIMIT = 1e-5                 # (c) relative
 # phase 8: the fault-tolerance runs
 FAULT_SNAPSHOTS = 8
 THRESHOLD = 1.01             # a halo cell: density above this
@@ -1666,6 +1723,242 @@ def analysis_phase(docs, plans):
         raise RuntimeError("; ".join(problems))
 
 
+# --------------------------------------------------------------- phase 13
+_RACE_PROBE = """
+import glob, importlib.util, json, os, sys, time
+os.environ["WILKINS_EXPLORE"] = "1"
+import torch
+from repro_torch.analysis.explore import explore
+out = {}
+for path in sorted(glob.glob(os.path.join(sys.argv[1], "wlk*.py"))):
+    stem = os.path.basename(path)[:-3]
+    spec = importlib.util.spec_from_file_location("_race_" + stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    build = mod.build
+    if stem == "wlk320_tensor_view":   # its tensor and view on the card
+        build = lambda: mod.build("tensor", torch.device("cuda", 0))
+    t0 = time.perf_counter()
+    rep = explore(build, scenario=stem, max_schedules=mod.BUDGET)
+    out[stem] = {"codes": sorted({d.code for d in rep.findings}),
+                 "schedule_id": rep.schedule_id, "schedules": rep.schedules,
+                 "s": time.perf_counter() - t0}
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
+print(json.dumps({"races": out, "foreign_modules": bad}))
+"""
+
+
+def explore_phase():
+    """Phase 13: ``python -m repro_torch.analysis explore --json`` with the
+    payloads on ``cuda:0`` and again with ``--device cpu``, and the port's
+    seeded races (the tensor-view race on the card), each in a fresh
+    interpreter, the three at once."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("WILKINS_EXPLORE", None)
+    races = os.path.join(ROOT, "tests", "analysis_fixtures", "races_torch")
+    argv = {"cuda": ["-m", "repro_torch.analysis", "explore", "--json"],
+            "cpu": ["-m", "repro_torch.analysis", "explore", "--json",
+                    "--device", "cpu"],
+            "races": ["-c", _RACE_PROBE, races]}
+    procs, t0 = {}, {}
+    for tag, a in argv.items():
+        t0[tag] = time.perf_counter()
+        procs[tag] = subprocess.Popen([sys.executable, *a], env=env, cwd=ROOT,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+    res, wall, problems = {}, {}, []
+    try:
+        for tag, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            wall[tag] = time.perf_counter() - t0[tag]
+            if proc.returncode:
+                problems.append(f"{tag}: rc {proc.returncode}: {out[-400:]} "
+                                f"{err[-1500:]}")
+                continue
+            res[tag] = json.loads(out.strip().splitlines()[-1]) \
+                if tag == "races" else json.loads(out)
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+    counts = {tag: {d["scenario"]: [d["schedules"], d["pruned"], d["steps_total"]]
+                    for d in res.get(tag, [])} for tag in ("cuda", "cpu")}
+    found = {tag: sorted(d["scenario"] for d in res.get(tag, []) if d["found"])
+             for tag in ("cuda", "cpu")}
+    races = res.get("races", {}).get("races", {})
+    got_ids = {k: (tuple(v["codes"]), v["schedule_id"]) for k, v in races.items()}
+    want_ids = {k: ((code,), sid) for k, (code, sid) in RACE_IDS.items()}
+    emit({"phase": "explore", "counts_cuda": counts["cuda"],
+          "counts_cpu": counts["cpu"], "findings_cuda": found["cuda"],
+          "findings_cpu": found["cpu"], "races": races,
+          "wall_s": wall, "phase_s": time.perf_counter() - t_phase})
+    for tag in ("cuda", "cpu"):
+        if counts[tag] != EXPLORE_COUNTS:
+            problems.append(f"explore on {tag}: counts {counts[tag]}, "
+                            f"expected {EXPLORE_COUNTS}")
+        if found[tag]:
+            problems.append(f"explore on {tag}: findings in {found[tag]}")
+    if got_ids != want_ids:
+        problems.append(f"races: {got_ids}, expected {want_ids}")
+    if res.get("races", {}).get("foreign_modules"):
+        problems.append(f"races: foreign modules {res['races']['foreign_modules']}")
+    if problems:
+        raise RuntimeError("; ".join(problems))
+
+
+# --------------------------------------------------------------- phase 14
+def _close(a, b, atol, rtol) -> bool:
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def _part(t0) -> dict:
+    torch.cuda.synchronize()
+    return {"s": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def parallel_phase(build, dev, seed):
+    """Phase 14: the parallel layer on ``cuda:0``: a world-size-1 NCCL
+    group and a (1, 1) ``("data", "model")`` host mesh under
+    ``RULE_VARIANTS["moe_a2a"]``.  (a) one phi3.5-moe MoE layer at full
+    width, float32, through the EP schedule against ``moe_dense``: output
+    and gradients; (b) phi3.5-moe at full width and ``PAR_LAYERS`` layers,
+    float32, ``use_flash``, ``moe_dispatch="a2a"`` against ``"dense"``:
+    logits, K3's launches; (c) ``launch.train``'s ``main`` on llama3.2-3b
+    at full width and 2 layers through the mesh and ``shard_batch``
+    against the trainer with no mesh.  Returns K3's launches in (b)'s a2a
+    forward."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe_a2a
+    from repro_torch.models import transformer
+    from repro_torch.parallel.sharding import RULE_VARIANTS, use_mesh
+    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticCorpus,
+                                   init_state, make_train_step)
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh(("data", "model"))
+    rules = RULE_VARIANTS["moe_a2a"]
+    row = {"phase": "parallel", "mesh": dict(zip(mesh.mesh_dim_names,
+                                                 mesh.mesh.shape)),
+           "backend": dist.get_backend(), "world": dist.get_world_size()}
+    problems = []
+
+    # (a) one MoE layer at full width
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = get_config(PAR_ARCH).replace(dtype="float32", moe_dispatch="a2a",
+                                       capacity_factor=PAR_CAPACITY)
+    moe = L.MoE(cfg, dev)
+    moe.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    x = torch.randn((PAR_BATCH, PAR_SEQ, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    params = [moe.router, moe.gate, moe.up, moe.down]
+    moe_a2a.reset_call_count()
+    with use_mesh(mesh, rules):
+        y, _ = L.moe(moe, cfg, x)
+    calls = moe_a2a.call_count()
+    g = torch.autograd.grad(torch.sum(y ** 2), params)
+    y_dense, _ = L.moe_dense(moe, cfg, x)
+    g_dense = torch.autograd.grad(torch.sum(y_dense ** 2), params)
+    atol, rtol = PAR_GRAD_TOL
+    names = ("router", "gate", "up", "down")
+    row["a"] = {"tokens": PAR_BATCH * PAR_SEQ, "d_model": cfg.d_model,
+                "experts": cfg.n_experts, "top_k": cfg.top_k,
+                "d_ff": cfg.moe_ffn, "ep_calls": calls,
+                "out_max_abs_err": float((y - y_dense).detach().abs().max()),
+                "out_close": _close(y, y_dense, PAR_OUT_TOL, PAR_OUT_TOL),
+                "grad_max_abs_err": {n: float((a - b).abs().max())
+                                     for n, a, b in zip(names, g, g_dense)},
+                "grads_close": all(_close(a, b, atol, rtol)
+                                   for a, b in zip(g, g_dense)),
+                "weights_gb": sum(p.numel() * 4 for p in params) / 1e9,
+                **_part(t0)}
+    if calls != 1 or not (row["a"]["out_close"] and row["a"]["grads_close"]):
+        problems.append(f"(a) EP schedule vs moe_dense: {row['a']}")
+    del moe, x, y, y_dense, g, g_dense, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the whole model at PAR_LAYERS layers, a2a against dense
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = get_config(PAR_ARCH).replace(
+        n_layers=PAR_LAYERS, dtype="float32", use_flash=True,
+        moe_dispatch="a2a", capacity_factor=PAR_CAPACITY)
+    model = transformer.init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, PAR_SEQ)), device=dev)
+    with torch.no_grad():
+        moe_a2a.reset_call_count()
+        build.reset_launch_counts()
+        with use_mesh(mesh, rules):
+            h, _, _ = transformer.forward(model, cfg, toks)
+        torch.cuda.synchronize()
+        k3 = build.launch_counts(["flash_attention"])["flash_attention"]
+        calls = moe_a2a.call_count()
+        logits = L.unembed(model.embed, h)
+        h, _, _ = transformer.forward(model, cfg.replace(moe_dispatch="dense"), toks)
+        dense = L.unembed(model.embed, h)
+    err = rel_l2(logits.float(), dense.float())
+    row["b"] = {"layers": PAR_LAYERS, "tokens": PAR_SEQ, "ep_calls": calls,
+                "flash_attention_launches": k3, "logits_rel_l2": err,
+                "finite": bool(torch.isfinite(logits).all()), **_part(t0)}
+    if calls != PAR_LAYERS or k3 != PAR_LAYERS or not row["b"]["finite"] \
+            or err > PAR_LOGITS_LIMIT:
+        problems.append(f"(b) phi3.5-moe a2a vs dense: {row['b']}")
+    del model, logits, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) launch.train through the mesh and shard_batch vs the plain trainer
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    argv = ["--arch", PAR_TRAIN_ARCH, "--n-layers", str(GATE_LAYERS),
+            "--steps", str(PAR_TRAIN_STEPS), "--seq-len", str(TRAIN_SEQ),
+            "--global-batch", str(TRAIN_BATCH), "--log-every", "1"]
+    got = launch_train.main(argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(PAR_TRAIN_ARCH).replace(use_flash=True, n_layers=GATE_LAYERS)
+    ocfg = AdamWConfig(lr=3e-4, total_steps=PAR_TRAIN_STEPS,
+                       warmup_steps=max(1, PAR_TRAIN_STEPS // 20),
+                       state_dtype=cfg.opt_state_dtype)
+    state = init_state(torch.Generator(device=dev).manual_seed(0), cfg, ocfg, dev)
+    step = make_train_step(cfg, ocfg)
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH))
+    want = []
+    for i in range(PAR_TRAIN_STEPS):
+        state, m = step(state, corpus.batch(i))
+        want.append(float(m["loss"]))
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    row["c"] = {"arch": PAR_TRAIN_ARCH, "layers": GATE_LAYERS,
+                "losses_mesh": got, "losses_plain": want, "loss_rel": rel,
+                **_part(t0)}
+    if len(got) != PAR_TRAIN_STEPS or max(rel) > PAR_LOSS_LIMIT:
+        problems.append(f"(c) launch.train under the mesh vs the trainer: {row['c']}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    row["limits"] = {"out": PAR_OUT_TOL, "grad": PAR_GRAD_TOL,
+                     "logits_rel_l2": PAR_LOGITS_LIMIT, "loss": PAR_LOSS_LIMIT}
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return k3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1773,6 +2066,9 @@ def main() -> int:
                     "ensemble": ensemble_doc, "scheduler": scheduler_doc},
                    main_plans + scheduler_plans)
 
+    explore_phase()
+    parallel_k3 = parallel_phase(build, dev, args.seed)
+
     kernels = time_kernels(pack, ops, ref, dev, rates[0], launches, STEPS, worst)
     for k in kernels:
         k["launches_faults"] = {run: n[k["name"]]
@@ -1793,6 +2089,9 @@ def main() -> int:
             k["name"] == "flash_attention" and k["dtype"] == "bfloat16")
         k["launches_train"] = (train_launches[k["name"]] if on_path
                                else {arch: 0 for arch, _ in TRAIN_ARCHS})
+        # phase 14 (b): phi3.5-moe's float32 forward through the EP schedule
+        k["launches_parallel"] = (parallel_k3 if k["name"] == "flash_attention"
+                                  and k["dtype"] == "float32" else 0)
     emit({"phase": "run", "run_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -44,9 +44,10 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 from .diagnostics import Diagnostic, Findings, Location
 
 __all__ = ["enabled", "explore_enabled", "make_lock", "make_condition",
-           "make_semaphore", "check_blocking", "sched_point", "hb_publish",
-           "hb_consume", "set_explore_controller", "explore_controller",
-           "registry", "LockCheckRegistry", "RANK_FINE", "RANKS"]
+           "make_semaphore", "check_blocking", "sched_point", "access_point",
+           "hb_publish", "hb_consume", "set_explore_controller",
+           "explore_controller", "registry", "LockCheckRegistry", "RANK_FINE",
+           "RANKS"]
 
 #: canonical rank bands (outermost = smallest); see module docstring
 RANKS: Dict[str, int] = {
@@ -78,8 +79,11 @@ def enabled() -> bool:
 def explore_enabled() -> bool:
     """Pass 3 (``analysis.explore``): the deterministic schedule explorer.
 
-    The explorer is not part of this package yet: with ``WILKINS_EXPLORE=1``
-    the lock factories below raise ``NotImplementedError``.
+    When ``WILKINS_EXPLORE=1`` the factories hand out *cooperative* model
+    primitives that serialize every managed thread onto a single
+    runnable-at-a-time token (see ``analysis/explore/control.py``); outside
+    an active exploration they delegate to plain ``threading`` primitives,
+    so merely having the env var set never changes production behaviour.
     """
     return os.environ.get("WILKINS_EXPLORE", "") not in ("", "0")
 
@@ -118,6 +122,20 @@ def sched_point(tag: str, key: Any = None, access: Optional[str] = None) -> None
     c = _EXPLORE_CONTROLLER
     if c is not None:
         c.sched_point(tag, key=key, access=access)
+
+
+def access_point(tag: str, key: Any, access: str) -> None:
+    """A shadow-state data access (``"r"``/``"w"``) at ``key`` for the
+    happens-before race detector, WITHOUT a yield point (no-op unless
+    exploring).
+
+    For accesses the JAX package has no yield point at -- the read of a
+    tensor buffer, which it makes of an immutable ``jax.Array`` -- so the
+    explored interleavings stay the JAX package's while the detector still
+    sees a mutable tensor being read."""
+    c = _EXPLORE_CONTROLLER
+    if c is not None:
+        c.access_point(tag, key=key, access=access)
 
 
 def hb_publish(key: Any) -> None:
@@ -369,18 +387,15 @@ class CheckedCondition:
 # ---------------------------------------------------------------------------
 # factories + the blocking-site hook
 # ---------------------------------------------------------------------------
-# Factory precedence: explore > lockcheck > plain.  The schedule explorer's
-# cooperative primitives have no counterpart in this package yet, so asking
-# for them raises instead of silently handing out unexplored primitives.
-def _explore_not_ported() -> None:
-    raise NotImplementedError("schedule explorer not yet ported")
-
-
+# Factory precedence: explore > lockcheck > plain.  The explore wrappers are
+# imported lazily (only when WILKINS_EXPLORE=1) so the common path never pays
+# the import and there is no lockcheck <-> explore import cycle.
 def make_lock(name: str) -> Any:
     """A ``threading.Lock`` -- checked when WILKINS_LOCKCHECK=1, a
     cooperative model lock when WILKINS_EXPLORE=1."""
     if explore_enabled():
-        _explore_not_ported()
+        from .explore.instrument import ExploreLock
+        return ExploreLock(name)
     return CheckedLock(name) if enabled() else threading.Lock()  # wilkins: ignore[WLK305] -- the factory itself
 
 
@@ -388,7 +403,8 @@ def make_condition(name: str) -> Any:
     """A ``threading.Condition`` -- checked and named when
     WILKINS_LOCKCHECK=1, a cooperative model CV when WILKINS_EXPLORE=1."""
     if explore_enabled():
-        _explore_not_ported()
+        from .explore.instrument import ExploreCondition
+        return ExploreCondition(name)
     return CheckedCondition(name) if enabled() else threading.Condition()  # wilkins: ignore[WLK305] -- the factory itself
 
 
@@ -398,7 +414,8 @@ def make_semaphore(name: str, value: int = 1) -> Any:
     (semaphores carry no canonical rank), so the lockcheck path stays
     plain; the name still matters to the explorer's dependence relation."""
     if explore_enabled():
-        _explore_not_ported()
+        from .explore.instrument import ExploreSemaphore
+        return ExploreSemaphore(name, value)
     return threading.Semaphore(value)  # wilkins: ignore[WLK305] -- the factory itself
 
 

@@ -334,7 +334,12 @@ def _buffer_key(arr: Any) -> int:
     """Stable identity of the underlying memory for the race detector:
     views of the same allocation map to the same key (walk the ``.base``
     chain, take the data pointer), so a slab view and its source dataset
-    are recognized as touching one buffer."""
+    are recognized as touching one buffer.  A tensor is keyed by its
+    storage's address, on the host and on the card alike, which every view
+    of it shares (a tensor has no ``__array_interface__``, and its
+    ``id()`` would give each view a key of its own)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.untyped_storage().data_ptr()
     base = arr
     while isinstance(base, np.ndarray) and base.base is not None:
         base = base.base
@@ -351,6 +356,14 @@ def _race_point(tag: str, arr: Any, mode: str) -> None:
     the buffer's base chain -- one module-attribute load and a None test."""
     if _lc._EXPLORE_CONTROLLER is not None:
         sched_point(tag, key=("buf", _buffer_key(arr)), access=mode)
+
+
+def _tensor_read(tag: str, arr: Any) -> None:
+    """A tracked read of a tensor buffer: no yield point, as the JAX package
+    has none at the read of an immutable ``jax.Array``, but the race
+    detector sees it (a tensor is mutable)."""
+    if _lc._EXPLORE_CONTROLLER is not None:
+        _lc.access_point(tag, ("buf", _buffer_key(arr)), "r")
 
 
 class _Share:
@@ -572,9 +585,11 @@ class Dataset:
         Tensors are returned as-is -- callers see a ``torch.Tensor`` and may
         hand it straight to the pack-kernel executors without a host
         round-trip -- after the check that nothing wrote it in place since
-        adoption.
+        adoption.  Unlike a ``jax.Array`` a tensor is mutable, so its read
+        is a tracked access for the race detector too.
         """
         if is_device_array(self._data):
+            _tensor_read("Dataset.read_direct", self._data)
             self._check_version(self._data)
             return self._data
         _race_point("Dataset.read_direct", self._data, "r")

@@ -1,12 +1,22 @@
 """Training driver: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-The reference's production loop on one device: config -> init (weights
-from ``torch.Generator`` seed 0) -> data pipeline (prefetched) -> train
-step -> async checkpoints -> auto-resume, with the same flags and printed
-lines as ``python -m repro.launch.train``.  It runs on ``cuda:0`` (raising
-without CUDA) unless given ``--device cpu``; use ``--reduced`` (the smoke
-config) on the CPU.  Attention and the SSD scan take the kernel route
-(``use_flash``): K3 and K4 on the card, their plain versions on the CPU.
+The reference's production loop: config -> mesh -> init (weights from
+``torch.Generator`` seed 0) -> data pipeline (prefetched, each batch placed
+on the mesh by ``shard_batch``) -> train step -> async checkpoints ->
+auto-resume, with the same flags and printed lines as ``python -m
+repro.launch.train``.  It runs on ``cuda:0`` (raising without CUDA)
+unless given ``--device cpu``; use ``--reduced`` (the smoke config) on the
+CPU.  Attention and the SSD scan take the kernel route (``use_flash``): K3
+and K4 on the card, their plain versions on the CPU.  ``--n-layers`` cuts
+the config's depth.
+
+The mesh is ``make_host_mesh(("data", "model"))`` over the default process
+group (world size 1 when none is running), or with ``--production-mesh``
+the (16, 16) pod mesh, which raises for want of 256 ranks as the
+reference does.  ``--weight-gather`` sets the rules.  The parameters stay
+plain tensors and the step takes each batch's local shard, so a mesh of
+more than one rank, which would need the gradients reduced across it, is
+refused.
 
 Fault tolerance: the driver always tries ``restore_latest`` first, so a
 killed run resumes from the newest atomic checkpoint with the data
@@ -15,26 +25,27 @@ step)).  Checkpoints hold the training state in the reference's layout
 (``convert.train_state_to_reference``), so either package resumes the
 other's; saving one needs host memory for the whole state.
 
-``--weight-gather`` is accepted and is the identity on one device, as in
-the reference; ``--production-mesh`` needs 256 devices and the mesh
-module, which is not ported yet, and raises.
+``main`` returns the loss of every step it ran.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from typing import List
 
 import torch
 
 from ..configs import ARCH_IDS, get_config
 from ..convert import train_state_from_reference, train_state_to_reference
 from ..serve.engine import default_device
+from ..parallel.sharding import DEFAULT_RULES, logical_to_spec, use_mesh
 from ..train import (AdamWConfig, AsyncCheckpointer, DataConfig, init_state,
                      make_batch_iter, make_train_step, restore_latest)
+from .mesh import make_host_mesh, make_production_mesh
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> List[float]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ARCH_IDS), required=True)
     ap.add_argument("--reduced", action="store_true",
@@ -49,56 +60,68 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="use the (16,16) pod mesh (needs 256 devices)")
+                    help="use the (16,16) pod mesh (needs 256 ranks)")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the config's depth to this many layers")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda:0, raising without CUDA)")
     args = ap.parse_args(argv)
 
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh needs 256 devices and launch/mesh.py, which "
-            "is not ported yet (ROADMAP Queue 1 item 12)")
     dev = default_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced).replace(use_flash=True)
+    if args.n_layers is not None:
+        cfg = cfg.replace(n_layers=args.n_layers)
     ocfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                        warmup_steps=max(1, args.steps // 20),
                        state_dtype=cfg.opt_state_dtype)
+    mesh = (make_production_mesh(device_type=dev.type) if args.production_mesh
+            else make_host_mesh(("data", "model"), device_type=dev.type))
+    if mesh.size() > 1:
+        raise NotImplementedError(
+            f"a mesh of {mesh.size()} ranks: the parameters are plain "
+            f"tensors, and their gradients are not reduced across ranks")
+    rules = DEFAULT_RULES.with_(weight_gather=args.weight_gather)
     step_fn = make_train_step(cfg, ocfg, accum_steps=args.accum_steps,
                               compress_grads=args.compress_grads)
     state = init_state(torch.Generator(device=dev).manual_seed(0), cfg, ocfg, dev)
 
-    start_step = 0
-    ckpt = None
-    if args.ckpt_dir:
-        ckpt = AsyncCheckpointer(args.ckpt_dir, keep=3)
-        if ckpt.latest_step() is not None:
-            got = restore_latest(args.ckpt_dir, train_state_to_reference(state))
-            start_step, host_state = got
-            state = train_state_from_reference(cfg, host_state, dev)
-            print(f"[resume] restored step {start_step} from {args.ckpt_dir}")
+    losses: List[float] = []
+    with use_mesh(mesh, rules):
+        start_step = 0
+        ckpt = None
+        if args.ckpt_dir:
+            ckpt = AsyncCheckpointer(args.ckpt_dir, keep=3)
+            if ckpt.latest_step() is not None:
+                got = restore_latest(args.ckpt_dir, train_state_to_reference(state))
+                start_step, host_state = got
+                state = train_state_from_reference(cfg, host_state, dev)
+                print(f"[resume] restored step {start_step} from {args.ckpt_dir}")
 
-    dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
-                      global_batch=args.global_batch)
-    it = make_batch_iter(dcfg, start_step=start_step,
-                         num_steps=args.steps - start_step)
-    t0 = time.monotonic()
-    tokens_done = 0
-    for step, batch in it:
-        state, metrics = step_fn(state, batch)
-        tokens_done += args.global_batch * args.seq_len
-        if (step + 1) % args.log_every == 0 or step == start_step:
-            loss = float(metrics["loss"])
-            dt = time.monotonic() - t0
-            print(f"step {step + 1:5d} loss {loss:.4f} "
-                  f"lr {float(metrics['lr']):.2e} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"tok/s {tokens_done / max(dt, 1e-9):,.0f}")
-        if ckpt and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step + 1, train_state_to_reference(state))
-    if ckpt:
-        ckpt.save(args.steps, train_state_to_reference(state), block=True)
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                          global_batch=args.global_batch)
+        bspec = logical_to_spec(("batch", None), mesh, rules)
+        it = make_batch_iter(dcfg, start_step=start_step,
+                             num_steps=args.steps - start_step,
+                             mesh=mesh, batch_spec=bspec)
+        t0 = time.monotonic()
+        tokens_done = 0
+        for step, batch in it:
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            tokens_done += args.global_batch * args.seq_len
+            if (step + 1) % args.log_every == 0 or step == start_step:
+                dt = time.monotonic() - t0
+                print(f"step {step + 1:5d} loss {losses[-1]:.4f} "
+                      f"lr {float(metrics['lr']):.2e} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"tok/s {tokens_done / max(dt, 1e-9):,.0f}")
+            if ckpt and (step + 1) % args.ckpt_every == 0:
+                ckpt.save(step + 1, train_state_to_reference(state))
+        if ckpt:
+            ckpt.save(args.steps, train_state_to_reference(state), block=True)
     print(f"done: {args.steps} steps in {time.monotonic() - t0:.1f}s")
+    return losses
 
 
 if __name__ == "__main__":

@@ -28,8 +28,8 @@ from torch import nn
 from ..convert import torch_dtype
 from . import layers as L
 
-__all__ = ["EncDec", "init", "encode", "cross_kv", "decode", "loss_fn",
-           "init_cache", "prefill", "decode_step"]
+__all__ = ["EncDec", "init", "param_specs", "encode", "cross_kv", "decode",
+           "loss_fn", "init_cache", "prefill", "decode_step"]
 
 Cache = Dict[str, object]
 
@@ -90,6 +90,23 @@ class EncDec(nn.Module):
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
+
+
+def param_specs(cfg) -> L.Specs:
+    """Each parameter's logical sharding axes, keyed by parameter name."""
+    ln = L.norm_specs()
+    enc = {**L.prefixed("ln1", ln), **L.prefixed("ln2", ln),
+           **L.prefixed("attn", L.attention_specs(cfg)),
+           **L.prefixed("ffn", L.swiglu_specs())}
+    dec = {**L.prefixed("ln1", ln), **L.prefixed("ln2", ln),
+           **L.prefixed("ln3", ln),
+           **L.prefixed("attn", L.attention_specs(cfg)),
+           **L.prefixed("xattn", L.attention_specs(cfg)),
+           **L.prefixed("ffn", L.swiglu_specs())}
+    return {**L.prefixed("embed", L.embed_specs(cfg)),
+            **L.stacked("enc", cfg.enc_layers, enc),
+            **L.stacked("dec", cfg.n_layers, dec),
+            **L.prefixed("ln_enc", ln), **L.prefixed("ln_f", ln)}
 
 
 def init(cfg, generator: Optional[torch.Generator] = None,

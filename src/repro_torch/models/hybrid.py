@@ -36,8 +36,8 @@ from ..kernels import ref as kref
 from . import layers as L
 from . import ssm
 
-__all__ = ["HybridLM", "init", "forward", "loss_fn", "init_cache", "prefill",
-           "decode_step"]
+__all__ = ["HybridLM", "init", "param_specs", "forward", "loss_fn",
+           "init_cache", "prefill", "decode_step"]
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
@@ -86,6 +86,18 @@ class HybridLM(nn.Module):
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
+
+
+def param_specs(cfg) -> L.Specs:
+    """Each parameter's logical sharding axes, keyed by parameter name."""
+    shared = {**L.prefixed("ln1", L.norm_specs()),
+              **L.prefixed("ln2", L.norm_specs()),
+              **L.prefixed("attn", L.attention_specs(cfg)),
+              **L.prefixed("ffn", L.swiglu_specs())}
+    return {**L.prefixed("embed", L.embed_specs(cfg)),
+            **L.stacked("layers", cfg.n_layers, ssm.layer_specs(cfg)),
+            **L.prefixed("shared", shared),
+            **L.prefixed("ln_f", L.norm_specs())}
 
 
 def init(cfg, generator: Optional[torch.Generator] = None,

@@ -27,9 +27,17 @@ always the plain attention.
 ``gate``/``up`` (E, d, f), ``down`` (E, f, d)); ``moe`` routes top-k with
 the sorted, capacity-limited dispatch and ``moe_dense`` is the
 every-token-through-every-expert oracle (layers.py:287-400).  The
-reference's ``a2a`` dispatch needs a device mesh (``moe_a2a.
-a2a_available``); on one device it falls through to sorted/dense, as the
-reference does without a mesh.
+``a2a`` dispatch runs the explicit expert-parallel schedule
+(``moe_a2a.moe_a2a``) under a mesh whose rules allow it
+(``moe_a2a.a2a_available``); without one it falls through to
+sorted/dense, as the reference does.
+
+The ``*_specs`` functions give each parameter's logical sharding axes
+(``parallel.sharding``), keyed by parameter name as ``named_parameters``
+names them; ``prefixed``/``stacked`` compose a family's ``param_specs``
+from them.  ``stacked`` keys layer i's parameters ``<name>.<i>.<path>``,
+where the reference's stacked leaf carries a leading ``None`` for its
+layer axis.
 
 ``blockwise_attention`` is the reference's pure-array flash attention
 (online softmax over key chunks): the long-sequence path of ``attend`` and
@@ -59,9 +67,11 @@ __all__ = ["rmsnorm", "RMSNorm", "rope_angles", "apply_rope",
            "blockwise_attention", "attend", "Attention", "SwiGLU", "MoE",
            "moe", "moe_dense", "Embed",
            "embed_lookup", "unembed", "cross_entropy", "chunked_cross_entropy",
-           "remat", "normal_"]
+           "remat", "normal_", "norm_specs", "attention_specs",
+           "swiglu_specs", "moe_specs", "embed_specs", "prefixed", "stacked"]
 
 Cache = Dict[str, torch.Tensor]
+Specs = Dict[str, Tuple[Optional[str], ...]]
 
 
 def normal_(p: torch.Tensor, std: float, generator: Optional[torch.Generator]
@@ -413,12 +423,18 @@ def moe(p: MoE, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     ``cap`` that is sliced away (the reference's scatter drops it), and its
     gather is clamped to row ``cap - 1`` and multiplied by 0, as the
     reference's clamped gather is.  Outputs are added per token in float32
-    with ``index_add``.  ``moe_dispatch="dense"``, or n*k <= 4E, takes
-    ``moe_dense``; ``"a2a"`` falls through here: its expert-parallel
-    schedule needs a mesh (ROADMAP item 12)."""
+    with ``index_add``.  ``moe_dispatch="a2a"`` takes the explicit
+    expert-parallel schedule when the ambient mesh allows it
+    (``moe_a2a``), and falls through here otherwise;
+    ``moe_dispatch="dense"``, or n*k <= 4E, takes ``moe_dense``."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     n = b * s
+    if cfg.moe_dispatch == "a2a":
+        from .moe_a2a import a2a_available, moe_a2a
+
+        if a2a_available(cfg):  # explicit EP schedule (mesh collectives)
+            return moe_a2a(p, cfg, x)
     if cfg.moe_dispatch == "dense" or n * k <= 4 * e:
         return moe_dense(p, cfg, x)
     cap = max(1, int(math.ceil(n * k * cfg.capacity_factor / e)))
@@ -450,6 +466,45 @@ def moe(p: MoE, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         0, tok_s, contrib.float())
     aux = _aux_loss(probs, _combine(topw, topi, e), e)
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+# ------------------------------------------------------- sharding specs
+def norm_specs() -> Specs:
+    return {"scale": (None,)}
+
+
+def attention_specs(cfg) -> Specs:
+    return {"wq": ("fsdp", "tensor"), "wk": ("fsdp", "tensor"),
+            "wv": ("fsdp", "tensor"), "wo": ("tensor", "fsdp")}
+
+
+def swiglu_specs() -> Specs:
+    return {"gate": ("fsdp", "tensor"), "up": ("fsdp", "tensor"),
+            "down": ("tensor", "fsdp")}
+
+
+def moe_specs() -> Specs:
+    return {"router": (None, "tensor"), "gate": ("expert", "fsdp", "tensor"),
+            "up": ("expert", "fsdp", "tensor"),
+            "down": ("expert", "tensor", "fsdp")}
+
+
+def embed_specs(cfg) -> Specs:
+    p = {"tok": ("tensor", "fsdp")}
+    if not cfg.tie_embeddings:
+        p["out"] = ("fsdp", "tensor")
+    return p
+
+
+def prefixed(prefix: str, specs: Specs) -> Specs:
+    """``specs`` of the submodule named ``prefix``."""
+    return {f"{prefix}.{k}": v for k, v in specs.items()}
+
+
+def stacked(name: str, n: int, specs: Specs) -> Specs:
+    """``specs`` of each of the ``n`` layers of the ``nn.ModuleList``
+    ``name``."""
+    return {k: v for i in range(n) for k, v in prefixed(f"{name}.{i}", specs).items()}
 
 
 # ------------------------------------------------------------- embeddings

@@ -3,6 +3,7 @@
 
 ``get_family(cfg)`` returns a ``Family`` with ``model(cfg, device)`` (the
 module, parameters uninitialised), ``init(cfg, generator, device)``,
+``param_specs(cfg)`` (each parameter's logical sharding axes),
 ``loss_fn(model, cfg, batch)``, ``init_cache(cfg, batch, max_len, dtype,
 device)``, ``prefill(model, cfg, batch, cache)`` and ``decode_step(model,
 cfg, token, cache)``, so the trainer and the serving engine are
@@ -26,6 +27,7 @@ class Family:
     name: str
     model: Callable
     init: Callable
+    param_specs: Callable
     loss_fn: Callable
     init_cache: Callable
     prefill: Callable
@@ -51,8 +53,8 @@ def _enc_prefill(model, cfg, batch, cache):
 
 
 _FAMILIES: Dict[str, Family] = {
-    fam: Family(fam, cls, mod.init, mod.loss_fn, mod.init_cache, pre,
-                mod.decode_step)
+    fam: Family(fam, cls, mod.init, mod.param_specs, mod.loss_fn,
+                mod.init_cache, pre, mod.decode_step)
     for fam, mod, cls, pre in (
         ("dense", transformer, transformer.Transformer, _tfm_prefill),
         ("moe", transformer, transformer.Transformer, _tfm_prefill),

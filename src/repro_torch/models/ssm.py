@@ -30,8 +30,8 @@ from ..kernels import ops as kops
 from . import layers as L
 
 __all__ = ["segsum", "ssd_chunked", "ssd_decode_step", "Mamba", "MambaLM",
-           "init", "forward", "loss_fn", "init_cache", "prefill",
-           "decode_step"]
+           "init", "mamba_specs", "layer_specs", "param_specs", "forward",
+           "loss_fn", "init_cache", "prefill", "decode_step"]
 
 Cache = Dict[str, torch.Tensor]
 
@@ -241,6 +241,26 @@ class MambaLM(nn.Module):
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
+
+
+def mamba_specs(cfg) -> L.Specs:
+    return {"in_proj": ("fsdp", "tensor"), "conv_w": (None, "tensor"),
+            "conv_b": ("tensor",), "A_log": (None,), "D": (None,),
+            "dt_bias": (None,), "out_proj": ("tensor", "fsdp"),
+            **L.prefixed("norm", L.norm_specs())}
+
+
+def layer_specs(cfg) -> L.Specs:
+    """The specs of one ``MambaLayer``."""
+    return {**L.prefixed("ln", L.norm_specs()),
+            **L.prefixed("mamba", mamba_specs(cfg))}
+
+
+def param_specs(cfg) -> L.Specs:
+    """Each parameter's logical sharding axes, keyed by parameter name."""
+    return {**L.prefixed("embed", L.embed_specs(cfg)),
+            **L.stacked("layers", cfg.n_layers, layer_specs(cfg)),
+            **L.prefixed("ln_f", L.norm_specs())}
 
 
 def init(cfg, generator: Optional[torch.Generator] = None,

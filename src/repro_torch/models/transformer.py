@@ -16,8 +16,8 @@ parallel on the same input); each layer returns its router's aux loss and
 token embeddings: positions run over V + S, the cache holds V + S entries,
 and the loss is taken on the text positions only.
 
-Public surface (as the reference's): ``init``, ``forward``, ``loss_fn``,
-``init_cache``, ``prefill``, ``decode_step``.  Under autograd each layer
+Public surface (as the reference's): ``init``, ``param_specs``,
+``forward``, ``loss_fn``, ``init_cache``, ``prefill``, ``decode_step``.  Under autograd each layer
 runs under the config's ``remat`` policy (``layers.remat``).
 """
 
@@ -31,8 +31,8 @@ from torch import nn
 from ..convert import torch_dtype
 from . import layers as L
 
-__all__ = ["Transformer", "init", "forward", "loss_fn", "init_cache",
-           "prefill", "decode_step"]
+__all__ = ["Transformer", "init", "param_specs", "forward", "loss_fn",
+           "init_cache", "prefill", "decode_step"]
 
 Cache = Dict[str, torch.Tensor]
 
@@ -86,6 +86,25 @@ class Transformer(nn.Module):
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
+
+
+def _layer_specs(cfg) -> L.Specs:
+    p = {**L.prefixed("ln1", L.norm_specs()), **L.prefixed("ln2", L.norm_specs()),
+         **L.prefixed("attn", L.attention_specs(cfg))}
+    if cfg.family == "moe":
+        p.update(L.prefixed("moe", L.moe_specs()))
+        if cfg.dense_residual:
+            p.update(L.prefixed("ffn", L.swiglu_specs()))
+    else:
+        p.update(L.prefixed("ffn", L.swiglu_specs()))
+    return p
+
+
+def param_specs(cfg) -> L.Specs:
+    """Each parameter's logical sharding axes, keyed by parameter name."""
+    return {**L.prefixed("embed", L.embed_specs(cfg)),
+            **L.stacked("layers", cfg.n_layers, _layer_specs(cfg)),
+            **L.prefixed("ln_f", L.norm_specs())}
 
 
 def init(cfg, generator: Optional[torch.Generator] = None,

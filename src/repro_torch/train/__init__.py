@@ -13,11 +13,11 @@ from .checkpoint import (AsyncCheckpointer, load_pytree, load_pytree_flat,
 
 _LAZY = {
     "DataConfig": "data", "Prefetcher": "data", "SyntheticCorpus": "data",
-    "make_batch_iter": "data",
+    "make_batch_iter": "data", "shard_batch": "data",
     "AdamWConfig": "optim", "adamw_init": "optim", "adamw_update": "optim",
     "cosine_lr": "optim",
     "TrainState": "trainer", "init_state": "trainer",
-    "make_train_step": "trainer",
+    "make_train_step": "trainer", "state_specs": "trainer",
 }
 
 __all__ = ["AsyncCheckpointer", "load_pytree", "load_pytree_flat",

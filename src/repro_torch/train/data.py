@@ -8,9 +8,11 @@ a background thread so host data work overlaps device compute.  The corpus
 is numpy and pure in (seed, step): both packages give byte-equal batches,
 and restoring a checkpoint's step resumes the exact batch sequence.
 
-Batches stay host arrays; the trainer moves them to its device.  The
-reference's ``shard_batch`` (placing a batch onto a mesh) waits for the
-mesh and sharding modules (ROADMAP Queue 1 item 12).
+Batches stay host arrays, and the trainer moves them to its device, unless
+``make_batch_iter`` is given a mesh and a batch spec: ``shard_batch`` then
+places each batch on the mesh as ``DTensor``s sharded over the batch axes,
+every rank cutting its own shard from the host batch it made (no
+communication), as the reference's ``make_array_from_callback`` does.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ from dataclasses import dataclass
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["DataConfig", "SyntheticCorpus", "make_batch_iter", "Prefetcher"]
+__all__ = ["DataConfig", "SyntheticCorpus", "make_batch_iter", "Prefetcher",
+           "shard_batch"]
 
 
 @dataclass(frozen=True)
@@ -59,6 +63,34 @@ class SyntheticCorpus:
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
+def shard_batch(batch: Dict[str, np.ndarray], mesh, batch_spec) -> Dict[str, Any]:
+    """Place a host batch onto the mesh, sharded over the batch axes: each
+    leaf a ``DTensor`` of the whole batch's shape whose local shard is this
+    rank's slice, on the mesh's device."""
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel.sharding import placements
+
+    pl = placements(batch_spec, mesh)
+    coord = mesh.get_coordinate()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    out = {}
+    for k, v in batch.items():
+        full = torch.as_tensor(v)
+        local = full
+        for m, p in enumerate(pl):
+            if p.is_shard():
+                n, size = mesh.size(m), local.shape[p.dim]
+                if size % n:
+                    raise ValueError(f"{k}: dimension {p.dim} of size {size} "
+                                     f"does not split over {n} ranks")
+                local = local.narrow(p.dim, coord[m] * (size // n), size // n)
+        out[k] = DTensor.from_local(local.to(dev), mesh, pl, run_check=False,
+                                    shape=full.shape, stride=full.stride())
+    return out
+
+
 class Prefetcher:
     """One-step-ahead background prefetch (host data work overlaps compute)."""
 
@@ -90,16 +122,21 @@ def make_batch_iter(
     cfg: DataConfig,
     start_step: int = 0,
     num_steps: Optional[int] = None,
+    mesh=None,
+    batch_spec=None,
     prefetch: bool = True,
 ) -> Iterator[Tuple[int, Dict[str, Any]]]:
-    """(step, host batch) pairs from ``start_step`` on (the reference's
-    ``mesh``/``batch_spec`` arguments wait for ``shard_batch``)."""
+    """(step, batch) pairs from ``start_step`` on: host arrays, or placed on
+    ``mesh`` by ``shard_batch`` when given ``mesh`` and ``batch_spec``."""
     corpus = SyntheticCorpus(cfg)
 
     def gen():
         step = start_step
         while num_steps is None or step < start_step + num_steps:
-            yield step, corpus.batch(step)
+            b = corpus.batch(step)
+            if mesh is not None and batch_spec is not None:
+                b = shard_batch(b, mesh, batch_spec)
+            yield step, b
             step += 1
 
     return Prefetcher(gen()) if prefetch else gen()

@@ -16,8 +16,12 @@ per leaf (symmetric, absmax scale) before it enters the accumulator, with
 an error-feedback residual folded into the next microbatch, as in the
 reference; a leaf is the reference's, so the layers of a stacked leaf
 share one scale.  The reference's ZeRO hint (``constrain`` of the gradients to
-the parameter layout) is the identity on one device and is left out;
-``state_specs`` waits for the sharding modules (ROADMAP Queue 1 item 12).
+the parameter layout) is the identity on one device and is left out.
+
+``state_specs`` is the logical-axis tree of the whole state (ZeRO-3: the
+moments like the parameters), keyed as the state is.  The parameters stay
+plain tensors; a batch placed on a mesh (``data.shard_batch``) enters the
+step as this rank's local shard.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from ..serve.engine import default_device
 from .optim import (AdamWConfig, OptState, adamw_init, adamw_update,
                     reference_order)
 
-__all__ = ["TrainState", "make_train_step", "init_state"]
+__all__ = ["TrainState", "make_train_step", "init_state", "state_specs"]
 
 
 class TrainState(NamedTuple):
@@ -50,6 +54,20 @@ def init_state(generator: Optional[torch.Generator], cfg,
     model = get_family(cfg).init(cfg, generator, device)
     return TrainState(params=model, opt=adamw_init(model, opt_cfg),
                       rng=np.zeros(2, np.uint32))
+
+
+def state_specs(cfg) -> TrainState:
+    """Logical-axis spec tree for the full TrainState (ZeRO-3: m/v like
+    params), each keyed by parameter name."""
+    pspecs = get_family(cfg).param_specs(cfg)
+    return TrainState(params=pspecs, opt=OptState(step=(), m=pspecs, v=pspecs),
+                      rng=())
+
+
+def _local(v: Any) -> Any:
+    """This rank's shard of a batch leaf placed on a mesh (a ``DTensor``);
+    anything else as it is."""
+    return v.to_local() if hasattr(v, "to_local") else v
 
 
 # ----------------------------------------------------------- int8 compression
@@ -107,7 +125,7 @@ def make_train_step(
     def train_step(state: TrainState, batch: Dict[str, Any]):
         model = state.params
         dev = next(model.parameters()).device
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        batch = {k: torch.as_tensor(_local(v)).to(dev) for k, v in batch.items()}
 
         if accum_steps == 1:
             loss, grads = grads_of(model, batch)

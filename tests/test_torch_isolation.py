@@ -40,6 +40,11 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
         "repro_torch.analysis.rules", "repro_torch.analysis.workflow",
         "repro_torch.analysis.plancheck", "repro_torch.analysis.astlint",
         "repro_torch.analysis.cli", "repro_torch.analysis.__main__",
+        "repro_torch.analysis.explore", "repro_torch.analysis.explore.control",
+        "repro_torch.analysis.explore.instrument",
+        "repro_torch.analysis.explore.scenarios",
+        "repro_torch.parallel", "repro_torch.parallel.sharding",
+        "repro_torch.launch.mesh", "repro_torch.models.moe_a2a",
         "repro_torch.obs.recorder", "repro_torch.obs.critical",
         "repro_torch.obs.export",
         "repro_torch.kernels.pack", "repro_torch.kernels.ops",
@@ -64,6 +69,34 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
             "mamba2_2_7b", "phi35_moe", "phi3_mini", "tinyllama_1_1b",
             "whisper_base", "zamba2_2_7b")}
     assert expected <= set(res["modules"])
+
+
+_FIXTURE_PROBE = """
+import glob, importlib.util, json, os, sys
+paths = sorted(glob.glob(os.path.join(sys.argv[1], "wlk*.py")))
+for p in paths:
+    spec = importlib.util.spec_from_file_location(
+        "_race_" + os.path.basename(p)[:-3], p)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
+print(json.dumps({"fixtures": [os.path.basename(p) for p in paths], "bad": bad}))
+"""
+
+
+def test_port_race_fixtures_load_no_jax_or_reference():
+    """The explorer's seeded races for the port import the port only."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    races = os.path.join(os.path.dirname(__file__), "analysis_fixtures",
+                         "races_torch")
+    out = subprocess.run([sys.executable, "-c", _FIXTURE_PROBE, races], env=env,
+                         check=True, capture_output=True, text=True, timeout=120)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    assert res["fixtures"] == [
+        "wlk320_tensor_view.py", "wlk320_torn_capture.py",
+        "wlk320_torn_stats.py", "wlk321_lock_order.py",
+        "wlk322_notify_outside_lock.py", "wlk323_missed_epoch_dedup.py"]
 
 
 _RESTORE_PROBE = """
@@ -126,6 +159,34 @@ def test_analysis_cli_runs_with_jax_and_reference_unimportable(argv):
     assert "no findings" in lines
 
 
+def test_explore_cli_runs_with_jax_and_reference_unimportable():
+    """``python -m repro_torch.analysis explore --device cpu`` in a fresh
+    interpreter that refuses ``jax``, ``ml_dtypes`` and ``repro``."""
+    repo = os.path.abspath(os.path.join(SRC, ".."))
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    argv = ["explore", "--device", "cpu", "--scenario", "latest_fanin"]
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_CLI, *argv], env=env,
+                         cwd=repo, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "RC 0", out.stdout + out.stderr
+    assert lines[0].startswith("latest_fanin") and lines[0].endswith("clean")
+
+
+def test_explorer_and_mesh_default_to_cuda_and_never_fall_back():
+    """The explorer's payloads and the host mesh are on the card unless the
+    caller asks for the CPU; without CUDA they raise."""
+    from repro_torch.analysis.explore import build_scenario
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_scenario("rendezvous_depth1")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_host_mesh(("data", "model"))
+
+
 def test_port_sources_name_no_jax_import():
     root = os.path.dirname(repro_torch.__file__)
     for mod in pkgutil.walk_packages([root], "repro_torch."):
@@ -163,15 +224,18 @@ def test_wilkins_defaults_to_cuda_and_never_falls_back_to_cpu():
 
 
 def test_explorer_flag_raises_until_the_explorer_is_ported(monkeypatch):
+    """The explorer is ported: under the flag the factories hand out its
+    cooperative primitives (the name is kept from when they raised)."""
     from repro_torch.analysis import lockcheck
+    from repro_torch.analysis.explore import instrument
 
     monkeypatch.setenv("WILKINS_EXPLORE", "1")
-    for make in (lockcheck.make_lock, lockcheck.make_condition,
-                 lockcheck.make_semaphore):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make("leaf:x")
+    for make, cls in ((lockcheck.make_lock, instrument.ExploreLock),
+                      (lockcheck.make_condition, instrument.ExploreCondition),
+                      (lockcheck.make_semaphore, instrument.ExploreSemaphore)):
+        assert isinstance(make("leaf:x"), cls)
     monkeypatch.delenv("WILKINS_EXPLORE")
-    assert lockcheck.make_lock("leaf:x") is not None
+    assert not isinstance(lockcheck.make_lock("leaf:x"), instrument.ExploreLock)
 
 
 _RESCALE_YAML = """

@@ -387,5 +387,5 @@ def test_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
     assert f"[resume] restored step 2 from {tmp_path}" in out
     assert out.count("\nstep ") + out.startswith("step ") == 1  # only step 3 ran
     assert "step     3 loss" in out
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="need 256 ranks for the production mesh"):
         launch.main(common + ["--production-mesh"])
