@@ -166,7 +166,26 @@ JSON line and any failure exiting non-zero:
    (c) ``repro_torch.launch.train``'s ``main``, 2 steps of llama3.2-3b at
    full width and 2 layers, batch 2 x 2048, through the host mesh and
    ``shard_batch``: its losses within 1e-5 of the same steps of the
-   trainer with no mesh.  Printed: each part's seconds and peak memory.
+   trainer with no mesh.  Printed: each part's seconds and peak memory;
+15. dryrun -- the sharded dry run (``repro_torch.launch.dryrun``).  (a)
+   Five production cells at once, one fresh interpreter each, with
+   ``--device cuda`` (fake tensors on the card, a ``fake`` group of 256
+   or 512 ranks): llama3.2-3b train_4k on the pod mesh, the same with
+   ``--variant wg``, mamba2-2.7b prefill_32k on the multipod mesh,
+   phi3.5-moe decode_32k with ``--variant moe_a2a`` and zamba2-2.7b
+   long_500k (batch 1, replicated).  Gates: each exits 0 with ``ok``,
+   records collectives, its roofline FLOPs and bytes equal the port's
+   ``analytic_stats`` for the cell, and ``wg`` makes more all-gather calls
+   than the baseline (a gather of each weight before its use).  Printed per cell: trace seconds, rank 0's
+   peak bytes beside the card's 80 GB, collective bytes by kind, and the
+   roofline times and bottleneck at the H100's rates.  (b) llama3.2-3b at
+   full width and depth in bf16, one 2048-token prefill on a world-size-1
+   NCCL group and a (1, 1) mesh, traced as (a) traces a cell and then run
+   for real on the same placed arguments: predicted peak bytes over the
+   measured ``max_memory_allocated`` within [0.5, 2.0], logits equal to
+   the plain single-device prefill's bit for bit.  No kernel lies on the
+   dry run's path (no config sets ``use_flash``), in the reference or here;
+   (b)'s real run counts the launches (``launches_dryrun``).
 
 The lines before the last are the whole run's wall time (builds included),
 the per-kernel summary and the card's name and power limit; the last line
@@ -198,13 +217,6 @@ N_PROD = 4
 TILE = 8                     # tile extent along the decomposed axis
 REPS = 30                    # timed launches per measurement
 SPIN_CYCLES = 1_000_000      # about half a millisecond of the card's clock
-# peak memory bandwidth (bytes/s), dense bf16 tensor-core and float32 CUDA-core
-# rates (FLOP/s), by device name (NVIDIA data sheets, at the full power limit)
-PEAKS = (("H100 80GB HBM3", 3.35e12, 989e12, 67e12),
-         ("H100 SXM", 3.35e12, 989e12, 67e12),
-         ("H100 NVL", 3.9e12, 835e12, 60e12),
-         ("H100 PCIe", 2.0e12, 756e12, 51e12),
-         ("H200", 4.8e12, 989e12, 67e12))
 REPLACES = {"pack_blocks": "src/repro/kernels/pack.py:37",
             "pack_cols": "src/repro/kernels/pack.py:74",
             "flash_attention": "src/repro/kernels/flash_attention.py:87",
@@ -288,6 +300,23 @@ PAR_GRAD_TOL = (5e-4, 5e-3)           # (a) gradients: atol, rtol
 PAR_LOGITS_LIMIT = 1e-4               # (b) relative L2
 PAR_TRAIN_ARCH, PAR_TRAIN_STEPS = "llama3.2-3b", 2
 PAR_LOSS_LIMIT = 1e-5                 # (c) relative
+# phase 15: the sharded dry run, one fresh interpreter per production cell
+# (arch, shape, mesh, variant), all started together
+DRY_CELLS = (("llama3.2-3b", "train_4k", "pod", None),
+             ("llama3.2-3b", "train_4k", "pod", "wg"),
+             ("mamba2-2.7b", "prefill_32k", "multipod", None),
+             ("phi3.5-moe-42b-a6.6b", "decode_32k", "pod", "moe_a2a"),
+             ("zamba2-2.7b", "long_500k", "pod", None))
+DRY_CALIB = ("llama3.2-3b", 2048, 1)  # (b): arch, prompt, batch (bf16, full size)
+DRY_RATIO = (0.5, 2.0)                # (b): predicted / measured peak bytes
+# (a): the traced FLOPs (``FlopLog``, rank 0's local ops) over the analytic
+# count, within one mesh axis (16) either way: a count at the wrong scale
+# (global work, or one axis's share missed) falls outside.  The ratio is
+# not 1: plain attention computes the whole causal square, decode pads the
+# MoE capacity buffers, DTensor splits a replicated batch's contractions
+# over the data ranks (PERF.md, phase 15)
+DRY_FLOPS_RATIO = (1 / 16, 16)
+CARD_BYTES = 80e9
 # phase 8: the fault-tolerance runs
 FAULT_SNAPSHOTS = 8
 THRESHOLD = 1.01             # a halo cell: density above this
@@ -314,11 +343,11 @@ def smi() -> str:
 
 
 def peaks(name: str):
-    """(bytes/s, bf16 FLOP/s, float32 FLOP/s) of the card."""
-    for key, *rates in PEAKS:
-        if key in name:
-            return rates
-    raise RuntimeError(f"no peak rates on record for {name!r}")
+    """(bytes/s, bf16 FLOP/s, float32 FLOP/s) of the card: the port's one
+    table of the cards' data-sheet rates (``repro_torch.launch.hlo.PEAKS``)."""
+    from repro_torch.launch.hlo import peaks as card_peaks
+
+    return list(card_peaks(name))
 
 
 def source(name: str) -> str:
@@ -1959,6 +1988,177 @@ def parallel_phase(build, dev, seed):
     return k3
 
 
+# --------------------------------------------------------------- phase 15
+def dryrun_phase(build, dev, seed):
+    """Phase 15: the sharded dry run.  (a) ``python -m
+    repro_torch.launch.dryrun --device cuda`` on each of ``DRY_CELLS``, a
+    fresh interpreter each (a fake group of 256 or 512 ranks cannot share
+    a process with a real one), all at once; (b) llama3.2-3b at full width
+    and depth in bf16, one 2048-token prefill, traced as the dry run traces
+    a cell on a world-size-1 NCCL group and a (1, 1) mesh, then run for
+    real on ``cuda:0`` on the same placed arguments: its predicted peak
+    bytes against the measured ``max_memory_allocated``, its logits
+    against the plain single-device prefill's bit for bit.  Returns the
+    kernels' launches in (b)'s real run."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, Shape, get_config
+    from repro_torch.launch import dryrun, hlo
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import make_cell, place_args
+    from repro_torch.models.registry import get_family
+
+    t_phase = time.perf_counter()
+    problems = []
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs, t0, wall = {}, {}, {}
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as out_dir:
+        for arch, shape, mesh, variant in DRY_CELLS:
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                    arch, "--shape", shape, "--mesh", mesh, "--device", "cuda",
+                    "--results-dir", out_dir] + (["--variant", variant]
+                                                 if variant else [])
+            key = (arch, shape, mesh, variant)
+            t0[key] = time.perf_counter()
+            procs[key] = subprocess.Popen(argv, env=env, cwd=ROOT,
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True)
+        try:
+            for key, proc in procs.items():
+                out, err = proc.communicate(timeout=900)
+                wall[key] = time.perf_counter() - t0[key]
+                if proc.returncode:
+                    problems.append(f"dryrun {key}: rc {proc.returncode}: "
+                                    f"{out[-400:]} {err[-1500:]}")
+                    continue
+                arch, shape, mesh, variant = key
+                tag = f"__{variant}" if variant else ""
+                with open(os.path.join(out_dir,
+                                       f"{arch}__{shape}__{mesh}{tag}.json")) as f:
+                    results[key] = json.load(f)
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
+    cells = []
+    for key, res in results.items():
+        arch, shape_name, mesh, variant = key
+        cfg = get_config(arch)
+        shape = next(s for s in SHAPES if s.name == shape_name)
+        n_data = res["n_devices"] // 16
+        accum = 4 if shape.kind == "train" else 1
+        ana = hlo.analytic_stats(cfg, shape, n_data, 16, accum_steps=accum)
+        rf, coll = res["roofline"], res["collectives"]
+        flops_ratio = res["raw_cost_analysis"]["flops"] / rf["flops"]
+        row = {"phase": "dryrun_cell", "arch": arch, "shape": shape_name,
+               "mesh": mesh, "variant": variant, "n_devices": res["n_devices"],
+               "ok": res["ok"], "trace_s": res["t_lower_s"], "wall_s": wall[key],
+               "memory": res["memory"], "peak_gb": res["memory"]["peak_bytes"] / 1e9,
+               "card_gb": CARD_BYTES / 1e9,
+               "fits": res["memory"]["peak_bytes"] <= CARD_BYTES,
+               "collective_bytes": coll["bytes_by_kind"],
+               "collective_calls": coll["count_by_kind"],
+               "weight_gathers": coll["weight_gathers"],
+               "weight_gather_bytes": coll["weight_gather_bytes"],
+               "t_compute": rf["t_compute"], "t_memory": rf["t_memory"],
+               "t_collective": rf["t_collective"], "bottleneck": rf["bottleneck"],
+               "flops": rf["flops"], "hbm_bytes": rf["hbm_bytes"],
+               "raw_flops": res["raw_cost_analysis"]["flops"],
+               "raw_over_analytic": flops_ratio, "analytic": ana}
+        cells.append(row)
+        emit(row)
+        if not res["ok"] or not coll["count_by_kind"]:
+            problems.append(f"dryrun {key}: ok {res['ok']}, collectives {coll}")
+        # the cell's mesh split (data ranks, pod included) as the phase reads it
+        if (rf["flops"], rf["hbm_bytes"]) != (ana["flops"], ana["hbm_bytes"]):
+            problems.append(f"dryrun {key}: roofline {rf['flops']}, "
+                            f"{rf['hbm_bytes']} against analytic {ana}")
+        if not DRY_FLOPS_RATIO[0] <= flops_ratio <= DRY_FLOPS_RATIO[1]:
+            problems.append(f"dryrun {key}: traced FLOPs {flops_ratio:.3f} of the "
+                            f"analytic count, outside {DRY_FLOPS_RATIO}")
+    base = results.get(("llama3.2-3b", "train_4k", "pod", None))
+    wg = results.get(("llama3.2-3b", "train_4k", "pod", "wg"))
+    gathers = {}
+    if base and wg:
+        # wg gathers every fsdp-split weight at its access point; some
+        # weight the baseline leaves split (no all-gather of its gathered
+        # shard's shape in the baseline's trace) must be gathered at least
+        # once per microbatch under wg
+        per = 4
+        b_w = base["collectives"]["weight_gathers"]
+        w_w = wg["collectives"]["weight_gathers"]
+        only = {k: n for k, n in w_w.items() if not b_w.get(k) and n >= per}
+        gathers = {"baseline": b_w, "wg": w_w, "wg_only": only,
+                   "microbatches": per,
+                   "bytes": {t: r["collectives"]["weight_gather_bytes"]
+                             for t, r in (("baseline", base), ("wg", wg))}}
+        if not only:
+            problems.append(f"wg gathers no weights the baseline does not: {gathers}")
+
+    # (b) one cell traced and run for real, its memory estimate sized
+    arch, s_len, batch = DRY_CALIB
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0b = time.perf_counter()
+    cfg = get_config(arch)
+    fam = get_family(cfg)
+    shape = Shape("calib_prefill", s_len, batch, "prefill")
+    mesh = make_host_mesh(("data", "model"))
+    with dryrun.virtual_ranks(1):
+        cell = make_cell(cfg, shape, mesh)
+        tr = dryrun.trace_cell(cell, mesh, dev)
+    predicted = tr["argument_bytes"] + tr["temp_bytes"]
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    model = fam.init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, s_len)), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        plain, _ = fam.prefill(model, cfg, {"tokens": toks},
+                               fam.init_cache(cfg, batch, s_len, device=dev))
+    args = place_args(cell, mesh, (model, {"tokens": toks},
+                                   fam.init_cache(cfg, batch, s_len, device=dev)))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = build.launch_counts()
+    logits, _ = cell.fn(*args)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - m0
+    launches = launches_since(build, before)
+    got = logits.full_tensor()
+    equal = bool(torch.equal(got, plain))
+    ratio = predicted / measured
+    calib = {"phase": "dryrun_calib", "arch": arch, "dtype": cfg.dtype,
+             "layers": cfg.n_layers, "prompt": s_len, "batch": batch,
+             "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+             "backend": dist.get_backend(), "trace_s": tr["t_lower_s"],
+             "predicted": {"argument_bytes": tr["argument_bytes"],
+                           "temp_bytes": tr["temp_bytes"], "peak_bytes": predicted},
+             "measured_peak_bytes": measured, "ratio": ratio,
+             "ratio_limits": DRY_RATIO, "logits_equal": equal,
+             "logits_max_abs_diff": float((got.float() - plain.float()).abs().max()),
+             "launches": launches, "s": time.perf_counter() - t0b}
+    emit(calib)
+    if not DRY_RATIO[0] <= ratio <= DRY_RATIO[1]:
+        problems.append(f"(b) predicted {predicted} against measured {measured} bytes")
+    if not equal:
+        problems.append(f"(b) placed logits differ from the plain prefill's: {calib}")
+    del model, args, logits, plain, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    emit({"phase": "dryrun", "card": smi(), "cells": len(cells),
+          "all_gathers": gathers,
+          "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2068,6 +2268,7 @@ def main() -> int:
 
     explore_phase()
     parallel_k3 = parallel_phase(build, dev, args.seed)
+    dryrun_launches = dryrun_phase(build, dev, args.seed)
 
     kernels = time_kernels(pack, ops, ref, dev, rates[0], launches, STEPS, worst)
     for k in kernels:
@@ -2092,6 +2293,8 @@ def main() -> int:
         # phase 14 (b): phi3.5-moe's float32 forward through the EP schedule
         k["launches_parallel"] = (parallel_k3 if k["name"] == "flash_attention"
                                   and k["dtype"] == "float32" else 0)
+        # phase 15 (b): the dry run's cell run for real takes the plain path
+        k["launches_dryrun"] = dryrun_launches.get(k["name"], 0)
     emit({"phase": "run", "run_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)

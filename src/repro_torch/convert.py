@@ -155,6 +155,8 @@ def _stack(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     flat: Dict[str, torch.Tensor] = {}
     for name, t in named.items():
         key, layer = reference_leaf(name)
+        if hasattr(t, "full_tensor"):  # a DTensor: every rank gathers it
+            t = t.full_tensor()
         t = t.detach().cpu()
         if layer is None:
             flat[name] = t

@@ -38,19 +38,21 @@ def pack_cols_ref(src: torch.Tensor, tile_offsets: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
     """Scaled-dot-product attention with GQA broadcast, in float32 with the
     finite ``-1e30`` mask, rounded to ``q.dtype`` once.
 
-    q (B, Sq, H, D); k/v (B, Sk, KV, D) with H = KV * rep; query i and key
-    i share position i.  Head h reads kv head h // rep.  The same function
-    as the reference's ``_sdpa`` (models/layers.py) with no query offset."""
+    q (B, Sq, H, D); k/v (B, Sk, KV, D) with H = KV * rep; query i has
+    position ``q_offset + i`` and key j position j.  Head h reads kv head
+    h // rep.  The same function as the reference's ``_sdpa``
+    (models/layers.py)."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     rep = h // kv
     qg = (q.float() / math.sqrt(d)).reshape(b, sq, kv, rep, d)
     scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k.float())
-    qpos = torch.arange(sq, device=q.device)
+    qpos = torch.arange(sq, device=q.device) + q_offset
     kpos = torch.arange(sk, device=q.device)
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:

@@ -16,7 +16,7 @@ address, world size and rank) before the mesh is made.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,19 +27,29 @@ _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 def _world(device_type: str) -> int:
     """The default group's world size, starting a world-size-1 group over a
-    ``HashStore`` when there is none."""
+    ``HashStore`` when there is none.  A ``"cuda"`` mesh needs a card
+    whether or not a group is running, and a running group's backend must
+    be the device type's (NCCL for ``"cuda"``, gloo for ``"cpu"``) or
+    ``fake`` (the dry run's virtual ranks, ``launch/dryrun.py``)."""
     import torch.distributed as dist
 
     if device_type not in _BACKENDS:
         raise ValueError(f"device_type {device_type!r}: one of {sorted(_BACKENDS)}")
-    if not dist.is_initialized():
-        if device_type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("CUDA is not available: ask for "
-                                   "device_type='cpu' to build a CPU mesh")
-            torch.cuda.set_device(0)
-        dist.init_process_group(_BACKENDS[device_type], store=dist.HashStore(),
-                                rank=0, world_size=1)
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: ask for "
+                           "device_type='cpu' to build a CPU mesh")
+    if dist.is_initialized():
+        backend = str(dist.get_backend())
+        if backend != "fake" and _BACKENDS[device_type] not in backend:
+            raise RuntimeError(
+                f"a {device_type!r} mesh over a running {backend!r} group: "
+                f"it needs {_BACKENDS[device_type]!r} (or the dry run's "
+                f"'fake' group)")
+        return dist.get_world_size()
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(_BACKENDS[device_type], store=dist.HashStore(),
+                            rank=0, world_size=1)
     return dist.get_world_size()
 
 
@@ -66,8 +76,14 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     return _mesh(device_type, shape, axes)
 
 
-def make_host_mesh(axes: Tuple[str, ...] = ("data",), device_type: str = "cuda"):
-    """A mesh over every rank of the default process group, all of them on
-    the first axis: (world, 1, ...)."""
+def make_host_mesh(axes: Tuple[str, ...] = ("data",), device_type: str = "cuda",
+                   shape: Optional[Tuple[int, ...]] = None):
+    """A mesh over every rank of the default process group: all of them on
+    the first axis, (world, 1, ...), or ``shape`` (whose product must be
+    the world size)."""
     world = _world(device_type)
-    return _mesh(device_type, (world,) + (1,) * (len(axes) - 1), tuple(axes))
+    shape = tuple(shape) if shape else (world,) + (1,) * (len(axes) - 1)
+    if math.prod(shape) != world or len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} over axes {tuple(axes)} for "
+                         f"{world} ranks")
+    return _mesh(device_type, shape, tuple(axes))

@@ -11,12 +11,20 @@ and K4 on the card, their plain versions on the CPU.  ``--n-layers`` cuts
 the config's depth.
 
 The mesh is ``make_host_mesh(("data", "model"))`` over the default process
-group (world size 1 when none is running), or with ``--production-mesh``
-the (16, 16) pod mesh, which raises for want of 256 ranks as the
-reference does.  ``--weight-gather`` sets the rules.  The parameters stay
-plain tensors and the step takes each batch's local shard, so a mesh of
-more than one rank, which would need the gradients reduced across it, is
-refused.
+group (world size 1 when none is running; ``--mesh 2x2`` gives its shape),
+or with ``--production-mesh`` the (16, 16) pod mesh, which raises for want
+of 256 ranks as the reference does.  ``--weight-gather`` sets the rules.
+On one rank the parameters stay plain tensors and the step takes each
+batch's local shard.  On more, each rank draws the whole initial state
+from the same seeded generator and keeps its shard of every leaf
+(``parallel.sharding.place``: the ranks agree without a broadcast), the
+parameters and moments become ``DTensor``s laid out by ``state_specs``,
+and the step is the sharded one (``train.trainer``): the gradients are
+reduced across the data ranks by DTensor's redistribution.  The process
+group is the caller's (``torch.distributed.init_process_group`` with its
+address, world size and rank); on the card rank r runs on ``cuda:r``
+modulo the cards present.  A checkpoint gathers every leaf on every rank
+and rank 0 writes it.
 
 Fault tolerance: the driver always tries ``restore_latest`` first, so a
 killed run resumes from the newest atomic checkpoint with the data
@@ -35,13 +43,16 @@ import time
 from typing import List
 
 import torch
+import torch.distributed as dist
 
 from ..configs import ARCH_IDS, get_config
 from ..convert import train_state_from_reference, train_state_to_reference
 from ..serve.engine import default_device
-from ..parallel.sharding import DEFAULT_RULES, logical_to_spec, use_mesh
+from ..parallel.sharding import (DEFAULT_RULES, logical_to_spec,
+                                 tree_shardings, use_mesh)
 from ..train import (AdamWConfig, AsyncCheckpointer, DataConfig, init_state,
-                     make_batch_iter, make_train_step, restore_latest)
+                     make_batch_iter, make_train_step, place_state,
+                     restore_latest, state_specs)
 from .mesh import make_host_mesh, make_production_mesh
 
 
@@ -61,6 +72,9 @@ def main(argv=None) -> List[float]:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--production-mesh", action="store_true",
                     help="use the (16,16) pod mesh (needs 256 ranks)")
+    ap.add_argument("--mesh", default=None,
+                    help="the host mesh's (data, model) shape, e.g. 2x2 "
+                         "(default: every rank on the data axis)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the config's depth to this many layers")
@@ -69,18 +83,20 @@ def main(argv=None) -> List[float]:
     args = ap.parse_args(argv)
 
     dev = default_device(args.device)
+    if dev.type == "cuda" and dist.is_initialized() and dist.get_world_size() > 1:
+        dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
     cfg = get_config(args.arch, reduced=args.reduced).replace(use_flash=True)
     if args.n_layers is not None:
         cfg = cfg.replace(n_layers=args.n_layers)
     ocfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                        warmup_steps=max(1, args.steps // 20),
                        state_dtype=cfg.opt_state_dtype)
+    shape = tuple(int(n) for n in args.mesh.split("x")) if args.mesh else None
     mesh = (make_production_mesh(device_type=dev.type) if args.production_mesh
-            else make_host_mesh(("data", "model"), device_type=dev.type))
-    if mesh.size() > 1:
-        raise NotImplementedError(
-            f"a mesh of {mesh.size()} ranks: the parameters are plain "
-            f"tensors, and their gradients are not reduced across ranks")
+            else make_host_mesh(("data", "model"), device_type=dev.type,
+                                shape=shape))
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     rules = DEFAULT_RULES.with_(weight_gather=args.weight_gather)
     step_fn = make_train_step(cfg, ocfg, accum_steps=args.accum_steps,
                               compress_grads=args.compress_grads)
@@ -97,6 +113,9 @@ def main(argv=None) -> List[float]:
                 start_step, host_state = got
                 state = train_state_from_reference(cfg, host_state, dev)
                 print(f"[resume] restored step {start_step} from {args.ckpt_dir}")
+        if mesh.size() > 1:  # every rank keeps its shard of each leaf
+            state = place_state(state, tree_shardings(mesh, state_specs(cfg),
+                                                      rules), mesh)
 
         dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                           global_batch=args.global_batch)
@@ -108,6 +127,8 @@ def main(argv=None) -> List[float]:
         tokens_done = 0
         for step, batch in it:
             state, metrics = step_fn(state, batch)
+            metrics = {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                       for k, v in metrics.items()}
             losses.append(float(metrics["loss"]))
             tokens_done += args.global_batch * args.seq_len
             if (step + 1) % args.log_every == 0 or step == start_step:
@@ -117,9 +138,13 @@ def main(argv=None) -> List[float]:
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"tok/s {tokens_done / max(dt, 1e-9):,.0f}")
             if ckpt and (step + 1) % args.ckpt_every == 0:
-                ckpt.save(step + 1, train_state_to_reference(state))
+                host = train_state_to_reference(state)
+                if rank0:
+                    ckpt.save(step + 1, host)
         if ckpt:
-            ckpt.save(args.steps, train_state_to_reference(state), block=True)
+            host = train_state_to_reference(state)
+            if rank0:
+                ckpt.save(args.steps, host, block=True)
     print(f"done: {args.steps} steps in {time.monotonic() - t0:.1f}s")
     return losses
 

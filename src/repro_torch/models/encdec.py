@@ -26,10 +26,11 @@ import torch
 from torch import nn
 
 from ..convert import torch_dtype
+from ..parallel.sharding import constrain, weight
 from . import layers as L
 
 __all__ = ["EncDec", "init", "param_specs", "encode", "cross_kv", "decode",
-           "loss_fn", "init_cache", "prefill", "decode_step"]
+           "loss_fn", "init_cache", "cache_specs", "prefill", "decode_step"]
 
 Cache = Dict[str, object]
 
@@ -132,7 +133,7 @@ def encode(model: EncDec, cfg, frames: torch.Tensor) -> torch.Tensor:
     output (B, S_src, d) after ``ln_enc``.  Non-causal: plain attention."""
     b, s, _ = frames.shape
     positions = _positions(b, s, frames.device)
-    h = frames.to(torch_dtype(cfg.dtype))
+    h = constrain(frames.to(torch_dtype(cfg.dtype)), ("batch", None, "fsdp"))
     for layer in model.enc:
         h = L.remat(_policy(cfg), lambda x, f=layer: f(x, positions, cfg), h)
     return model.ln_enc(h)
@@ -142,12 +143,12 @@ def cross_kv(model: EncDec, cfg, enc_out: torch.Tensor
              ) -> Dict[str, torch.Tensor]:
     """Each decoder layer's cross-attention K/V of the encoder output:
     {"k", "v": (L, B, S_src, KV, hd)}."""
-    b, s, _ = enc_out.shape
-    shape = (b, s, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.stack([(enc_out @ l.xattn.wk).reshape(shape)
-                              for l in model.dec]),
-            "v": torch.stack([(enc_out @ l.xattn.wv).reshape(shape)
-                              for l in model.dec])}
+    return {"k": torch.stack([
+                L.split_heads(enc_out @ weight(l.xattn.wk, ("fsdp", "tensor")), cfg)
+                for l in model.dec]),
+            "v": torch.stack([
+                L.split_heads(enc_out @ weight(l.xattn.wv, ("fsdp", "tensor")), cfg)
+                for l in model.dec])}
 
 
 # ----------------------------------------------------------------- decoder
@@ -201,6 +202,13 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
         "xkv": {"k": torch.zeros(cross_shape, dtype=dtype, device=device),
                 "v": torch.zeros(cross_shape, dtype=dtype, device=device)},
     }
+
+
+def cache_specs(cfg) -> Dict[str, object]:
+    """The cache's logical sharding axes, keyed as ``init_cache``'s dict."""
+    kv = (None, "batch", "kvseq", "kv", None)
+    xkv = (None, "batch", None, "kv", None)
+    return {"k": kv, "v": kv, "len": (), "xkv": {"k": xkv, "v": xkv}}
 
 
 def prefill(model: EncDec, cfg, tokens: torch.Tensor, cache: Cache,

@@ -33,11 +33,12 @@ from torch import nn
 
 from ..convert import torch_dtype
 from ..kernels import ref as kref
+from ..parallel.sharding import axis_index, constrain, local_apply, weight
 from . import layers as L
 from . import ssm
 
 __all__ = ["HybridLM", "init", "param_specs", "forward", "loss_fn",
-           "init_cache", "prefill", "decode_step"]
+           "init_cache", "cache_specs", "prefill", "decode_step"]
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
@@ -63,7 +64,7 @@ class SharedBlock(nn.Module):
 
     def forward(self, h, positions, cfg, cache=None):
         a, nc = _ring_attend(self.attn, cfg, self.ln1(h), positions, cache)
-        h = h + a
+        h = h + constrain(a, ("batch", "seq", "fsdp"))
         return h + self.ffn(self.ln2(h)), nc
 
 
@@ -116,48 +117,73 @@ def _ring_attend(p: L.Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
     (R,), "len": 0-d}: a prompt is attended the same way and its last
     min(R, S) keys fill the ring from slot 0; one token is written at slot
     ``len % R`` and attends over the written slots inside its window."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     hd = cfg.resolved_head_dim
-    h, kv = cfg.n_heads, cfg.n_kv_heads
-    q = (x @ p.wq).reshape(b, s, h, hd)
-    k = (x @ p.wk).reshape(b, s, kv, hd)
-    v = (x @ p.wv).reshape(b, s, kv, hd)
+    q = L.split_heads(x @ weight(p.wq, ("fsdp", "tensor")), cfg)
+    k = L.split_heads(x @ weight(p.wk, ("fsdp", "tensor")), cfg)
+    v = L.split_heads(x @ weight(p.wv, ("fsdp", "tensor")), cfg)
     cos, sin = L.rope_angles(positions, hd, cfg.rope_theta)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
 
     if cache is not None and s == 1:
-        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-        r = ck.shape[1]
-        idx = cache["len"]
-        slot = torch.remainder(idx, r).reshape(1).long()
-        ck.index_copy_(1, slot, k.to(ck.dtype))
-        cv.index_copy_(1, slot, v.to(cv.dtype))
-        cpos.index_copy_(0, slot, positions[0, :1].to(cpos.dtype))
-        new_len = idx + 1
-        written = torch.arange(r, device=x.device) < torch.clamp(new_len, max=r)
-        qpos = positions[0, 0]
-        in_window = (cpos > qpos - (cfg.window or 10**9)) & (cpos <= qpos)
-        valid = written & in_window
-        qf = (q.float() / math.sqrt(hd)).reshape(b, s, kv, h // kv, hd)
-        scores = torch.einsum("bqkrd,bskd->bkrqs", qf, ck.float())
-        scores = torch.where(valid, scores, kref.NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bkrqs,bskd->bqkrd", probs, cv.float())
-        out = out.reshape(b, s, h * hd).to(x.dtype)
-        return out @ p.wo, {"k": ck, "v": cv, "pos": cpos, "len": new_len}
+        ck, cv, cpos, idx = cache["k"], cache["v"], cache["pos"], cache["len"]
+        out = local_apply(
+            lambda *a: _ring_decode(*a, cfg),
+            (q, k, v, ck, cv, cpos, idx, positions),
+            (L.TOKEN_AXES,) * 3 + (L.CACHE_AXES,) * 2 + ((None,), (), (None, None)),
+            (L.TOKEN_AXES[:3],))
+        return out @ p.wo, {"k": ck, "v": cv, "pos": cpos, "len": idx + 1}
 
-    out = L.attend(q, k, v, cfg, causal=True, window=cfg.window)
-    out = out.reshape(b, s, h * hd) @ p.wo
+    q_ax, kv_ax = L.attention_layout(cfg, s, cfg.use_flash and s > 1)
+
+    def core(q, k, v):
+        o = L.attend(q, k, v, cfg, causal=True, window=cfg.window,
+                     q_offset=L.query_offset(q, s))
+        return o.reshape(o.shape[0], o.shape[1], -1)
+
+    out = constrain(local_apply(core, (q, k, v), (q_ax, kv_ax, kv_ax), (q_ax[:3],)),
+                    L.heads_axes(cfg)[:3])
+    out = out @ p.wo
     if cache is None:
         return out, None
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     take = min(ck.shape[1], s)
-    ck[:, :take] = k[:, s - take:].to(ck.dtype)
-    cv[:, :take] = v[:, s - take:].to(cv.dtype)
-    cpos[:take] = positions[0, s - take:].to(cpos.dtype)
+
+    def fill(k, v, ck, cv, cpos, positions):
+        L.fill_rows(ck, cv, k, v, s - take)
+        cpos[:take] = positions[0, s - take:].to(cpos.dtype)
+
+    local_apply(fill, (k, v, ck, cv, cpos, positions),
+                  (L.TOKEN_AXES,) * 2 + (L.CACHE_AXES,) * 2 + ((None,), (None, None)), ())
     return out, {"k": ck, "v": cv, "pos": cpos,
                  "len": torch.full_like(cache["len"], take)}
+
+
+def _ring_decode(q, k, v, ck, cv, cpos, idx, positions, cfg) -> torch.Tensor:
+    """One token per sequence: write k/v at ring slot ``idx % R`` and
+    attend over the written slots inside the window; this rank's slots of
+    the ring (all of them on one device).  ``cpos`` (R,) is whole on every
+    rank."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    r = cpos.shape[0]
+    slot = torch.remainder(idx, r)
+    L.write_at(ck, slot, k)
+    L.write_at(cv, slot, v)
+    cpos.index_copy_(0, slot.reshape(1).long(), positions[0, :1].to(cpos.dtype))
+    new_len = idx + 1
+    s_loc = ck.shape[1]
+    s0 = axis_index("kvseq") * s_loc
+    written = (s0 + torch.arange(s_loc, device=q.device)) < torch.clamp(new_len, max=r)
+    qpos = positions[0, 0]
+    cp = cpos[s0:s0 + s_loc]
+    in_window = (cp > qpos - (cfg.window or 10**9)) & (cp <= qpos)
+    valid = written & in_window
+    qf = (q.float() / math.sqrt(hd)).reshape(b, s, kv, h // kv, hd)
+    scores = torch.einsum("bqkrd,bskd->bkrqs", qf, ck.float())
+    scores = torch.where(valid, scores, kref.NEG_INF)
+    return L.cache_softmax_av(scores, cv).reshape(b, s, h * hd).to(q.dtype)
 
 
 # ----------------------------------------------------------------- forward
@@ -217,6 +243,13 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                  "pos": torch.zeros((ng, r), dtype=torch.int32, device=device),
                  "len": torch.zeros((ng,), dtype=torch.int32, device=device)},
     }
+
+
+def cache_specs(cfg) -> Dict[str, Dict[str, tuple]]:
+    """The cache's logical sharding axes, keyed as ``init_cache``'s dict."""
+    kv = (None, "batch", "kvseq", "kv", None)
+    return {"mamba": ssm.cache_specs(cfg),
+            "attn": {"k": kv, "v": kv, "pos": (), "len": ()}}
 
 
 def prefill(model: HybridLM, cfg, tokens: torch.Tensor, cache: Cache

@@ -12,8 +12,12 @@ the reference's shapes and scales from an explicit ``torch.Generator`` on
 the parameters' device (the values are the port's own: torch and JAX give
 other numbers for one seed).
 
-The reference's sharding hints (``constrain``/``weight``) are the identity
-on one device and are left out.  Attention over a prompt or a training
+The reference's sharding hints stand where the reference has them:
+``constrain`` pins an activation to a logical layout and ``weight`` marks
+a weight's use (``parallel.sharding``).  Both are the identity for a plain
+tensor or with no mesh, so a single-device run is unchanged; with the
+parameters and inputs as ``DTensor``s on a mesh they redistribute, as
+GSPMD does for the reference's.  Attention over a prompt or a training
 sequence routes to the K3 kernel (``kernels.ops.flash_attention``, which
 is differentiable) when ``cfg.use_flash`` is set, else to its plain version
 ``kernels.ref.flash_attention_ref`` (the reference's ``_sdpa``); decode
@@ -62,13 +66,21 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..convert import torch_dtype
 from ..kernels import ops as kops
 from ..kernels import ref as kref
+from ..parallel.sharding import (axis_group, axis_index, axis_size, constrain,
+                                 current_mesh, current_rules, local_apply,
+                                 mesh_sharding, partial_grads, replicated,
+                                 use_mesh, weight, whole_along)
 
 __all__ = ["rmsnorm", "RMSNorm", "rope_angles", "apply_rope",
            "blockwise_attention", "attend", "Attention", "SwiGLU", "MoE",
            "moe", "moe_dense", "Embed",
            "embed_lookup", "unembed", "cross_entropy", "chunked_cross_entropy",
            "remat", "normal_", "norm_specs", "attention_specs",
-           "swiglu_specs", "moe_specs", "embed_specs", "prefixed", "stacked"]
+           "swiglu_specs", "moe_specs", "embed_specs", "prefixed", "stacked",
+           "TOKEN_AXES", "CACHE_AXES", "heads_axes", "attention_layout",
+           "query_offset", "split_heads",
+           "fill_rows", "write_at",
+           "cache_softmax_av"]
 
 Cache = Dict[str, torch.Tensor]
 Specs = Dict[str, Tuple[Optional[str], ...]]
@@ -98,6 +110,23 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _ambient(fn: Callable) -> Callable:
+    """``fn`` with the calling thread's mesh and rules installed around it:
+    a checkpoint recomputes ``fn`` in the backward, which the autograd
+    engine runs on a thread of its own for CUDA tensors, where the ambient
+    mesh (per thread) would be missing."""
+    mesh = current_mesh()
+    if mesh is None:
+        return fn
+    rules = current_rules()
+
+    def run(*args):
+        with use_mesh(mesh, rules):
+            return fn(*args)
+
+    return run
+
+
 def remat(policy: str, fn: Callable, *args):
     """``fn(*args)`` under the config's ``remat`` policy, the reference's
     ``jax.checkpoint`` around a layer (transformer.py:129-132): ``"full"``
@@ -107,6 +136,7 @@ def remat(policy: str, fn: Callable, *args):
     a value."""
     if policy == "none" or not torch.is_grad_enabled():
         return fn(*args)
+    fn = _ambient(fn)
     if policy == "full":
         return checkpoint(fn, *args, use_reentrant=False)
     if policy == "dots":
@@ -118,9 +148,16 @@ def remat(policy: str, fn: Callable, *args):
 # ----------------------------------------------------------------- norms
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
             ) -> torch.Tensor:
+    """A ``DTensor`` (B, S, d) split along its sequence (the ``sp`` rules'
+    residual stream) comes out whole along it: the all-gather of sequence
+    parallelism before the next matmul (DTensor cannot flatten a batch
+    split and a sequence split into the rows of one matmul)."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+    out = (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+    if hasattr(out, "placements") and out.dim() == 3:
+        out = whole_along(out, 1)
+    return out
 
 
 class RMSNorm(nn.Module):
@@ -150,7 +187,11 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
                ) -> torch.Tensor:
-    """x (B, S, H, D); cos/sin (B, S, D/2) or (S, D/2)."""
+    """x (B, S, H, D); cos/sin (B, S, D/2) or (S, D/2).  Plain cos/sin
+    beside a ``DTensor`` x become replicated ``DTensor``s: the backward
+    multiplies by them, on a thread where DTensor takes no plain tensor."""
+    if hasattr(x, "placements"):
+        cos, sin = replicated(cos, x.device_mesh), replicated(sin, x.device_mesh)
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
     if cos.dim() == 2:
@@ -164,13 +205,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 # ------------------------------------------------------------- attention
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0,
-                        q_chunk: int = 1024, k_chunk: int = 1024
-                        ) -> torch.Tensor:
+                        q_chunk: int = 1024, k_chunk: int = 1024,
+                        q_offset: int = 0) -> torch.Tensor:
     """Flash attention in plain torch: an online softmax over key chunks
     for each query chunk, O(S * chunk) memory (layers.py:93-147).
 
-    q (B, Sq, H, D); k/v (B, Sk, KV, D); query i and key i share position
-    i.  Float32 inside, rounded to q's dtype once.  A key chunk that the
+    q (B, Sq, H, D); k/v (B, Sk, KV, D); query i has position ``q_offset +
+    i`` and key j position j.  Float32 inside, rounded to q's dtype once.  A key chunk that the
     causal or window mask hides from every row of a query chunk is skipped:
     the reference visits it, and it changes nothing there (its
     probabilities are exactly 0 once a row has seen a key, and a row's
@@ -186,13 +227,13 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for q0 in range(0, sq, q_chunk):
         q1 = min(q0 + q_chunk, sq)
         qc = qf[:, q0:q1]                                # (b, cq, kv, rep, d)
-        q_pos = torch.arange(q0, q1, device=q.device)
+        q_pos = torch.arange(q0, q1, device=q.device) + q_offset
         acc = l = m = None
         for k0 in range(0, sk, k_chunk):
             k1 = min(k0 + k_chunk, sk)
-            if causal and k0 > q1 - 1:
+            if causal and k0 > q1 - 1 + q_offset:
                 break                                    # every key is ahead
-            if window and k1 - 1 <= q0 - window:
+            if window and k1 - 1 <= q0 + q_offset - window:
                 continue                                 # every key is stale
             k_pos = torch.arange(k0, k1, device=q.device)
             s = torch.einsum("bqkrd,bskd->bkrqs", qc, kf[:, k0:k1])
@@ -225,18 +266,134 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
-           causal: bool = True, window: int = 0) -> torch.Tensor:
+           causal: bool = True, window: int = 0, q_offset: int = 0
+           ) -> torch.Tensor:
     """Dispatch by size (layers.py:150-159): K3 under ``cfg.use_flash``
     (causal, S > 1), ``blockwise_attention`` beyond two ``attn_chunk``s,
-    else the plain attention."""
-    s = q.shape[1]
+    else the plain attention.  ``q_offset``: the position of the first
+    query (a rank's slice of the queries, ``attention_layout``)."""
+    s = k.shape[1]
     if cfg.use_flash and causal and s > 1:
         return kops.flash_attention(q, k, v, causal=True, window=window)
     if s > 2 * cfg.attn_chunk:
         return blockwise_attention(q, k, v, causal=causal, window=window,
                                    q_chunk=cfg.attn_chunk,
-                                   k_chunk=cfg.attn_chunk)
-    return kref.flash_attention_ref(q, k, v, causal=causal, window=window)
+                                   k_chunk=cfg.attn_chunk, q_offset=q_offset)
+    return kref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+
+
+# The layouts of attention's local code (``parallel.sharding.local_apply``):
+# a token's q/k/v (B, S, heads, hd) split over the batch only, and one
+# layer's KV cache (B, S_max, KV, hd) as ``cache_specs`` splits it.
+TOKEN_AXES = ("batch", None, None, None)
+CACHE_AXES = ("batch", "kvseq", "kv", None)
+
+
+def heads_axes(cfg) -> Tuple[Optional[str], ...]:
+    """The layout of q/k/v (B, S, heads, hd) for attention: the batch, and
+    the heads over the tensor axes when they split both the query and the
+    KV heads evenly (Megatron's layout), else whole."""
+    n = axis_size("tensor")
+    split = cfg.n_heads % n == 0 and cfg.n_kv_heads % n == 0
+    return ("batch", None, "tensor" if split else None, None)
+
+
+def attention_layout(cfg, s: int, flash: bool):
+    """(q's layout, k/v's layout) for a prompt's attention on each rank's
+    shard: the heads split (``heads_axes``) where they divide; else, on
+    the plain path, the queries split along their length over the tensor
+    axes, each rank holding every key (each attends its slice of the
+    queries: the scores shrink by the split, as GSPMD's do with the heads
+    split unevenly); else only the batch split."""
+    ax = heads_axes(cfg)
+    if ax[2] is None and not flash and s % axis_size("tensor") == 0:
+        return ("batch", "tensor", None, None), ax
+    return ax, ax
+
+
+def query_offset(q: torch.Tensor, s: int) -> int:
+    """The position of the first of a rank's queries (B, S_loc, ...) of
+    ``s`` in all: its slice's start when ``attention_layout`` split them."""
+    return axis_index("tensor") * q.shape[1] if q.shape[1] < s else 0
+
+
+def split_heads(t: torch.Tensor, cfg) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd), on each rank's shard laid out as
+    ``heads_axes`` splits the heads: DTensor splits no sharded dimension
+    into two (in the forward, nor the merge's in the backward)."""
+    ax = heads_axes(cfg)
+    hd = cfg.resolved_head_dim
+    return local_apply(lambda t: t.reshape(t.shape[0], t.shape[1], -1, hd),
+                       (t,), (ax[:3],), (ax,))
+
+
+def fill_rows(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, src0: int) -> None:
+    """Write rows ``src0:`` of k/v (B, S, KV, hd) to rows 0.. of the cache
+    ck/cv (B, S_max, KV, hd), as many as fit: this rank's rows of a cache
+    split along its length over the ``kvseq`` axes (the whole of it on one
+    device)."""
+    s_loc = ck.shape[1]
+    s0 = axis_index("kvseq") * s_loc
+    n = max(0, min(k.shape[1] - src0 - s0, s_loc))
+    if n:
+        ck[:, :n] = k[:, src0 + s0:src0 + s0 + n].to(ck.dtype)
+        cv[:, :n] = v[:, src0 + s0:src0 + s0 + n].to(cv.dtype)
+
+
+def write_at(c: torch.Tensor, at: torch.Tensor, new: torch.Tensor) -> None:
+    """``c[:, at] = new`` for a 0-d position ``at`` of the whole cache
+    length, on this rank's rows of it (a rank whose rows do not hold
+    ``at`` writes nothing).  No host read: the position stays on the
+    device, as the reference's ``dynamic_update_slice`` keeps it."""
+    s_loc = c.shape[1]
+    if axis_size("kvseq") == 1:
+        c.index_copy_(1, at.reshape(1).long(), new.to(c.dtype))
+        return
+    rel = at - axis_index("kvseq") * s_loc
+    j = torch.clamp(rel, 0, s_loc - 1).reshape(1).long()
+    keep = c.index_select(1, j)
+    c.index_copy_(1, j, torch.where((rel >= 0) & (rel < s_loc),
+                                    new.to(c.dtype), keep))
+
+
+def cache_softmax_av(scores: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """softmax(scores) @ cv over the cache length, scores (B, KV, rep, Q,
+    S_loc) float32, cv (B, S_loc, KV, hd) -> (B, Q, KV, rep, hd) float32.
+    A cache split over the ``kvseq`` axes combines the ranks' partial
+    maxima, sums and products with three all-reduces (flash-decoding)."""
+    group = axis_group("kvseq")
+    if group is None:
+        probs = torch.softmax(scores, dim=-1)
+        return torch.einsum("bkrqs,bskd->bqkrd", probs, cv.float())
+    from torch.distributed import _functional_collectives as fc
+
+    m = fc.all_reduce(scores.amax(dim=-1, keepdim=True), "max", group)
+    p = torch.exp(scores - m)
+    total = fc.all_reduce(p.sum(dim=-1), "sum", group)
+    acc = fc.all_reduce(torch.einsum("bkrqs,bskd->bkrqd", p, cv.float()),
+                        "sum", group)
+    return (acc / total[..., None]).permute(0, 3, 1, 2, 4)
+
+
+def _decode_attend(q, k, v, ck, cv, idx, cfg) -> torch.Tensor:
+    """One token per sequence: write k/v at ``idx`` and attend over the
+    written cache rows (inside the window); this rank's rows of the cache."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    write_at(ck, idx, k)
+    write_at(cv, idx, v)
+    new_len = idx + s
+    s_loc = ck.shape[1]
+    kpos = axis_index("kvseq") * s_loc + torch.arange(s_loc, device=q.device)
+    valid = kpos < new_len
+    if cfg.window:
+        valid &= kpos > (new_len - 1 - cfg.window)
+    qf = (q.float() / math.sqrt(hd)).reshape(b, s, kv, h // kv, hd)
+    scores = torch.einsum("bqkrd,bskd->bkrqs", qf, ck.float())
+    scores = torch.where(valid, scores, kref.NEG_INF)
+    return cache_softmax_av(scores, cv).reshape(b, s, h * hd).to(q.dtype)
 
 
 class Attention(nn.Module):
@@ -271,15 +428,17 @@ class Attention(nn.Module):
         ``xattn_kv`` (k, v), each (B, S_src, KV, hd): cross-attention to
         them, without RoPE or cache, on the plain path (layers.py:201-214).
         Returns (out (B, S, d), the cache with its new ``len``)."""
-        b, s, _ = x.shape
+        s = x.shape[1]
         hd = cfg.resolved_head_dim
-        h, kv = cfg.n_heads, cfg.n_kv_heads
-        q = (x @ self.wq).reshape(b, s, h, hd)
+        q = split_heads(constrain(x @ weight(self.wq, ("fsdp", "tensor")),
+                                  ("batch", None, "tensor")), cfg)
         if xattn_kv is not None:
             k, v = xattn_kv
         else:
-            k = (x @ self.wk).reshape(b, s, kv, hd)
-            v = (x @ self.wv).reshape(b, s, kv, hd)
+            k = split_heads(constrain(x @ weight(self.wk, ("fsdp", "tensor")),
+                                      ("batch", None, "tensor")), cfg)
+            v = split_heads(constrain(x @ weight(self.wv, ("fsdp", "tensor")),
+                                      ("batch", None, "tensor")), cfg)
             cos, sin = rope_angles(positions, hd, cfg.rope_theta)
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
@@ -289,36 +448,36 @@ class Attention(nn.Module):
             # decode: append at `len`, attend over the whole cache (masked)
             idx = cache["len"]
             ck, cv = cache["k"], cache["v"]
-            at = idx.reshape(1).long()
-            ck.index_copy_(1, at, k.to(ck.dtype))
-            cv.index_copy_(1, at, v.to(cv.dtype))
-            new_len = idx + s
-            new_cache = {"k": ck, "v": cv, "len": new_len}
-            kpos = torch.arange(ck.shape[1], device=x.device)
-            valid = kpos < new_len
-            if cfg.window:
-                valid &= kpos > (new_len - 1 - cfg.window)
-            qf = (q.float() / math.sqrt(hd)).reshape(b, s, kv, h // kv, hd)
-            scores = torch.einsum("bqkrd,bskd->bkrqs", qf, ck.float())
-            scores = torch.where(valid, scores, kref.NEG_INF)
-            probs = torch.softmax(scores, dim=-1)
-            out = torch.einsum("bkrqs,bskd->bqkrd", probs, cv.float())
-            out = out.reshape(b, s, h, hd).to(x.dtype)
+            out = local_apply(
+                lambda q, k, v, ck, cv, idx: _decode_attend(q, k, v, ck, cv,
+                                                            idx, cfg),
+                (q, k, v, ck, cv, idx), (TOKEN_AXES,) * 3 + (CACHE_AXES,) * 2 + ((),),
+                (TOKEN_AXES[:3],))
+            new_cache = {"k": ck, "v": cv, "len": idx + s}
         else:
-            if cfg.use_flash and xattn_kv is None and causal and s > 1:
-                out = kops.flash_attention(q, k, v, causal=True,
-                                           window=cfg.window)
-            else:
-                out = kref.flash_attention_ref(q, k, v, causal=causal,
-                                               window=cfg.window)
+            flash = cfg.use_flash and xattn_kv is None and causal and s > 1
+            q_ax, kv_ax = attention_layout(cfg, s, flash)
+
+            def core(q, k, v):
+                if flash:
+                    o = kops.flash_attention(q, k, v, causal=True,
+                                             window=cfg.window)
+                else:
+                    o = kref.flash_attention_ref(q, k, v, causal=causal,
+                                                 window=cfg.window,
+                                                 q_offset=query_offset(q, s))
+                return o.reshape(o.shape[0], o.shape[1], -1)
+
+            out = constrain(local_apply(core, (q, k, v), (q_ax, kv_ax, kv_ax),
+                                        (q_ax[:3],)), heads_axes(cfg)[:3])
             if cache is not None:  # prefill fills the cache
                 ck, cv = cache["k"], cache["v"]
-                ck[:, :s] = k.to(ck.dtype)
-                cv[:, :s] = v.to(cv.dtype)
+                local_apply(lambda k, v, ck, cv: fill_rows(ck, cv, k, v, 0),
+                            (k, v, ck, cv), (TOKEN_AXES,) * 2 + (CACHE_AXES,) * 2, ())
                 new_cache = {"k": ck, "v": cv,
                              "len": torch.full_like(cache["len"], s)}
-        out = out.reshape(b, s, h * hd)
-        return out @ self.wo, new_cache
+        return constrain(out @ weight(self.wo, ("tensor", "fsdp")),
+                         ("batch", "seq", "fsdp")), new_cache
 
 
 # ----------------------------------------------------------------- SwiGLU
@@ -338,7 +497,11 @@ class SwiGLU(nn.Module):
                 generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (F.silu(x @ self.gate) * (x @ self.up)) @ self.down
+        h = (F.silu(x @ weight(self.gate, ("fsdp", "tensor")))
+             * (x @ weight(self.up, ("fsdp", "tensor"))))
+        h = constrain(h, ("batch", None, "tensor"))
+        return constrain(h @ weight(self.down, ("tensor", "fsdp")),
+                         ("batch", "seq", "fsdp"))
 
 
 # -------------------------------------------------------------------- MoE
@@ -368,13 +531,16 @@ class MoE(nn.Module):
         return moe(self, cfg, x)
 
 
-def _route(p: MoE, cfg, xf: torch.Tensor):
-    """Router probabilities (..., E) and the top-k weights (renormalised)
-    and expert ids, float32.  ``torch.topk`` returns the k largest in
-    descending order, as ``jax.lax.top_k`` does."""
-    probs = torch.softmax(xf.float() @ p.router, dim=-1)
-    topw, topi = torch.topk(probs, cfg.top_k, dim=-1, sorted=True)
-    return probs, topw / topw.sum(dim=-1, keepdim=True), topi
+def _router_probs(p: MoE, xf: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(xf.float() @ p.router, dim=-1)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """The top-k weights (renormalised) and expert ids, float32.
+    ``torch.topk`` returns the k largest in descending order, as
+    ``jax.lax.top_k`` does."""
+    topw, topi = torch.topk(probs, k, dim=-1, sorted=True)
+    return topw / topw.sum(dim=-1, keepdim=True), topi
 
 
 def _combine(topw: torch.Tensor, topi: torch.Tensor, e: int) -> torch.Tensor:
@@ -398,18 +564,30 @@ def moe_dense(p: MoE, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     Returns (out (B, S, d) in x's dtype, aux loss)."""
     b, s, d = x.shape
     e, f = cfg.n_experts, p.gate.shape[2]
-    probs, topw, topi = _route(p, cfg, x)
-    comb = _combine(topw, topi, e)                               # (B,S,E)
-    aux = _aux_loss(probs, comb, e)
+
+    def route(probs):  # the routing of every token, on every rank alike
+        topw, topi = _top_k(probs, cfg.top_k)
+        comb = _combine(topw, topi, e)                           # (B,S,E)
+        return comb, _aux_loss(probs, comb, e)
+
+    comb, aux = local_apply(route, (_router_probs(p, x),), ((None,) * 3,),
+                            ((None,) * 3, ()))
     # (n, d) @ (E, d, f) broadcasts to (E, n, f): the expert weights are
     # read in place (an einsum would copy them into a (d, E*f) layout)
     xe = x.to(torch_dtype(cfg.dtype)).reshape(b * s, d)
-    hg = torch.matmul(xe, p.gate)
-    hu = torch.matmul(xe, p.up)
+    hg = torch.matmul(xe, weight(p.gate, ("expert", "fsdp", "tensor")))
+    hu = torch.matmul(xe, weight(p.up, ("expert", "fsdp", "tensor")))
     h = F.silu(hg) * hu * comb.reshape(b * s, e).T.to(hg.dtype)[..., None]
-    # E and F contracted at once, as the reference's "bsef,efd->bsd"
-    out = h.permute(1, 0, 2).reshape(b * s, e * f) @ p.down.reshape(e * f, d)
-    return out.reshape(b, s, d).to(x.dtype), aux
+    # E and F contracted at once, as the reference's "bsef,efd->bsd"; split
+    # over the mesh, one product per expert, summed (DTensor cannot merge
+    # two split dimensions into one contraction)
+    down = weight(p.down, ("expert", "tensor", "fsdp"))
+    if hasattr(h, "placements"):
+        out = torch.bmm(h, down).sum(dim=0)
+    else:
+        out = h.permute(1, 0, 2).reshape(b * s, e * f) @ down.reshape(e * f, d)
+    return constrain(out.reshape(b, s, d).to(x.dtype),
+                     ("batch", "seq", "fsdp")), aux
 
 
 def moe(p: MoE, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -441,31 +619,61 @@ def moe(p: MoE, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     dt = torch_dtype(cfg.dtype)
 
     xf = x.reshape(n, d)
-    probs, topw, topi = _route(p, cfg, xf)                       # (n, E), (n, k)
+    # the sort, the pack and the unpack see every token on every rank (the
+    # global capacity decides which tokens an expert drops); the expert
+    # matmuls run on each rank's experts
+    buf, aux, *route = local_apply(
+        lambda xf, probs: _sort_and_pack(xf, probs, cfg, cap, dt),
+        (xf, _router_probs(p, xf)), ((None, None),) * 2,
+        ((None,) * 3, (), None, None, None, None, None))
+    buf = constrain(buf, ("expert", None, None))
+    h = (F.silu(torch.bmm(buf, weight(p.gate, ("expert", "fsdp", "tensor"))))
+         * torch.bmm(buf, weight(p.up, ("expert", "fsdp", "tensor"))))
+    h = constrain(h, ("expert", None, "tensor"))
+    o = torch.bmm(h, weight(p.down, ("expert", "tensor", "fsdp")))  # (E, cap, d)
+    y = local_apply(lambda o: _unpack(o, *route, n, cap), (o,), ((None,) * 3,),
+                    ((None, None),))
+    return constrain(y.reshape(b, s, d).to(x.dtype),
+                     ("batch", "seq", "fsdp")), aux
+
+
+def _sort_and_pack(xf, probs, cfg, cap: int, dt):
+    """Route the n tokens of ``xf`` (n, d), sort the n*k (token, expert)
+    entries by expert (stable) and pack each expert's first ``cap`` into
+    (E, cap, d).  Returns (the buffer, the aux loss, and the sorted
+    entries' expert ids, weights, tokens, ranks and in-capacity flags)."""
+    n, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
+    topw, topi = _top_k(probs, k)                                # (n, k)
     eid = topi.reshape(n * k)
     w = topw.reshape(n * k)
-    tok = torch.arange(n * k, device=x.device) // k
+    tok = torch.arange(n * k, device=xf.device) // k
     order = torch.argsort(eid, stable=True)
     eid_s, w_s, tok_s = eid[order], w[order], tok[order]
 
-    counts = torch.bincount(eid, minlength=e)
+    # the reference's counts.at[eid].add(1): a fixed (E,) shape, which a
+    # traced step needs (bincount's length depends on the data)
+    counts = torch.zeros(e, dtype=eid.dtype, device=eid.device).scatter_add_(
+        0, eid, torch.ones_like(eid))
     offsets = torch.cumsum(counts, dim=0) - counts
-    rank = torch.arange(n * k, device=x.device) - offsets[eid_s]
+    rank = torch.arange(n * k, device=xf.device) - offsets[eid_s]
     in_cap = rank < cap
     rank_c = torch.where(in_cap, rank, cap)
 
     xs = xf[tok_s].to(dt)
-    buf = torch.zeros((e, cap + 1, d), dtype=dt, device=x.device)
+    buf = torch.zeros((e, cap + 1, d), dtype=dt, device=xf.device)
     buf = buf.index_put((eid_s, rank_c), xs)[:, :cap]            # (E, cap, d)
-    h = F.silu(torch.bmm(buf, p.gate)) * torch.bmm(buf, p.up)
-    o = torch.bmm(h, p.down)                                     # (E, cap, d)
+    aux = _aux_loss(probs, _combine(topw, topi, e), e)
+    return buf, aux, eid_s, w_s, tok_s, rank_c, in_cap
 
+
+def _unpack(o, eid_s, w_s, tok_s, rank_c, in_cap, n: int, cap: int):
+    """Each token's sum of its experts' outputs ``o`` (E, cap, d), weighted,
+    in float32: (n, d)."""
     gathered = o[eid_s, torch.clamp(rank_c, max=cap - 1)]
     contrib = gathered * (w_s * in_cap)[:, None].to(o.dtype)
-    y = torch.zeros((n, d), dtype=torch.float32, device=x.device).index_add(
-        0, tok_s, contrib.float())
-    aux = _aux_loss(probs, _combine(topw, topi, e), e)
-    return y.reshape(b, s, d).to(x.dtype), aux
+    return torch.zeros((n, o.shape[2]), dtype=torch.float32,
+                       device=o.device).index_add(0, tok_s, contrib.float())
 
 
 # ------------------------------------------------------- sharding specs
@@ -527,28 +735,81 @@ class Embed(nn.Module):
 
 
 def embed_lookup(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
-    return p.tok[tokens]
+    if hasattr(p.tok, "placements") and current_mesh() is not None:
+        return constrain(_embed_vocab_parallel(p.tok, tokens),
+                         ("batch", "seq", "fsdp"))
+    return constrain(F.embedding(tokens, p.tok), ("batch", "seq", "fsdp"))
+
+
+def _embed_vocab_parallel(tok: torch.Tensor, tokens: torch.Tensor
+                          ) -> torch.Tensor:
+    """The gather from a table split over its vocabulary (``DTensor``
+    ``tok``), as GSPMD partitions the reference's ``take``: each rank looks
+    up the tokens of its rows of the vocabulary (zero for the others), the
+    table's model dimension gathered over the fsdp axes first, and the
+    result is a partial sum over the tensor axes.  Each rank sees the
+    tokens of its batch shard (the tokens gathered over the tensor axes,
+    should they split the batch as well).  DTensor's own strategy for the
+    gather (a masked partial) has no backward."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = current_mesh()
+    t_plc = mesh_sharding(mesh, ("tensor", None), current_rules())
+    vocab_dims = {i for i, q in enumerate(t_plc) if q.is_shard()}
+    b_plc = mesh_sharding(mesh, ("batch",) + (None,) * (tokens.dim() - 1),
+                          current_rules())
+    ids_plc = tuple(Replicate() if i in vocab_dims else q
+                    for i, q in enumerate(b_plc))
+    t = tok.redistribute(mesh, t_plc).to_local(grad_placements=partial_grads(t_plc))
+    ids = tokens.redistribute(mesh, ids_plc).to_local()
+    v_loc = t.shape[0]
+    v0 = axis_index("tensor") * v_loc
+    inside = (ids >= v0) & (ids < v0 + v_loc)
+    e = F.embedding(torch.where(inside, ids - v0, 0), t)
+    e = e * inside[..., None].to(e.dtype)
+    out_plc = tuple(Partial() if i in vocab_dims else
+                    (Shard(0) if q.is_shard() else Replicate())
+                    for i, q in enumerate(ids_plc))
+    shape = tuple(tokens.shape) + (tok.shape[1],)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(e, mesh, out_plc, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def _unembed_weight(p: Embed) -> torch.Tensor:
+    return (weight(p.out, ("fsdp", "tensor")) if p.out is not None
+            else weight(p.tok, ("tensor", "fsdp")).T)
 
 
 def unembed(p: Embed, x: torch.Tensor) -> torch.Tensor:
-    return x @ (p.out if p.out is not None else p.tok.T)
+    return constrain(x @ _unembed_weight(p), ("batch", None, "tensor"))
 
 
 # ------------------------------------------------------------------ losses
+def _label_logit(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's logit of its label.  Logits split over the vocabulary
+    (a ``DTensor``): the sum of the logits masked to the label, which each
+    rank takes on its slice of the vocabulary (DTensor's gather has no
+    strategy for it); a plain tensor: a gather."""
+    if hasattr(lf, "placements"):
+        hit = labels.long()[..., None] == torch.arange(lf.shape[-1],
+                                                       device=lf.device)
+        return torch.sum(torch.where(hit, lf, 0.0), dim=-1)
+    return torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross entropy, in float32."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(lse - ll)
+    return torch.mean(lse - _label_logit(lf, labels))
 
 
 def _chunk_loss(hc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor
                 ) -> torch.Tensor:
-    logits = (hc @ w).float()
+    logits = constrain(hc @ w, ("batch", None, "tensor")).float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lc[..., None])[..., 0]
-    return torch.sum(lse - ll)
+    return torch.sum(lse - _label_logit(logits, lc))
 
 
 def chunked_cross_entropy(h: torch.Tensor, embed: Embed, labels: torch.Tensor,
@@ -560,7 +821,7 @@ def chunked_cross_entropy(h: torch.Tensor, embed: Embed, labels: torch.Tensor,
     ``jax.checkpoint``), so the backward recomputes one chunk's logits at
     a time.  The last chunk may be short (the reference pads it and masks
     the padding out of the sum)."""
-    w = embed.out if embed.out is not None else embed.tok.T
+    w = _unembed_weight(embed)
     b, s, _ = h.shape
     if s <= chunk:
         return cross_entropy(unembed(embed, h), labels)
@@ -569,7 +830,8 @@ def chunked_cross_entropy(h: torch.Tensor, embed: Embed, labels: torch.Tensor,
     for c0 in range(0, s, chunk):
         hc, lc = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         if torch.is_grad_enabled():
-            part = checkpoint(_chunk_loss, hc, lc, w, use_reentrant=False)
+            part = checkpoint(_ambient(_chunk_loss), hc, lc, w,
+                              use_reentrant=False)
         else:
             part = _chunk_loss(hc, lc, w)
         total = total + part

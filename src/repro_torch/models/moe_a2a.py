@@ -22,10 +22,15 @@ per-rank schedule (all collectives explicit, all O(tokens), not O(weights)):
     6. unpack + weight locally, sum over the model axis: every expert shard
        contributes its experts' outputs to my tokens        (n_loc, d)
 
-``x`` is this rank's batch shard.  The parameters are plain tensors
-holding the whole weight; the schedule takes this rank's shard of each as
+``x`` is this rank's batch shard and the parameters are plain tensors
+holding the whole weight: the schedule takes this rank's shard of each as
 a view, so the gradient of a weight is nonzero only on this rank's shard,
-and the sum of the ranks' gradients is the whole gradient.
+and the sum of the ranks' gradients is the whole gradient.  Or ``x`` and
+the parameters are ``DTensor``s (the sharded dry run): they are
+redistributed to the reference's ``shard_map`` layouts (x over the batch
+axes, the router whole, gate/up (expert, -, f) and down (expert, f, -))
+and the schedule runs on their local shards
+(``parallel.sharding.local_apply``).
 
 Differentiable end to end.  Each collective is an ``autograd.Function``
 whose backward is its transpose: all-gather <-> reduce-scatter, and the
@@ -46,7 +51,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..convert import torch_dtype
-from ..parallel.sharding import current_mesh, current_rules, logical_to_spec
+from ..parallel.sharding import (current_mesh, current_rules, local_apply,
+                                 logical_to_spec)
 
 __all__ = ["a2a_available", "moe_a2a", "call_count", "reset_call_count"]
 
@@ -194,7 +200,22 @@ def moe_a2a(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ``layers.moe`` under the explicit EP schedule: this
     rank's tokens ``x`` (B_loc, S, d) -> (out (B_loc, S, d), aux loss
     averaged over the batch axes)."""
+    from torch.distributed.tensor import DTensor
+
     _CALLS[0] += 1
+    if isinstance(x, DTensor):
+        return local_apply(
+            lambda *a: _schedule(cfg, *a, local=True),
+            (x, p.router, p.gate, p.up, p.down),
+            (("batch", None, None), (None, None), ("expert", None, "tensor"),
+             ("expert", None, "tensor"), ("expert", "tensor", None)),
+            (("batch", None, None), ()), summed=(0, 1))
+    return _schedule(cfg, x, p.router, p.gate, p.up, p.down, local=False)
+
+
+def _schedule(cfg, x, router, gate, up, down, local: bool):
+    """The per-rank schedule; ``local``: the weights are this rank's
+    shards already, else whole."""
     mesh, rules = current_mesh(), current_rules()
     e_ax = rules.lookup("expert")                       # e.g. "model"
     f_ax = _axes(logical_to_spec(("tensor",), mesh, rules)[0])  # e.g. data
@@ -213,7 +234,7 @@ def moe_a2a(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     xf = x.reshape(n, d)
 
     # 1. local routing + pack (the math of layers.moe, all local)
-    probs = torch.softmax(xf.float() @ p.router, dim=-1)
+    probs = torch.softmax(xf.float() @ router, dim=-1)
     topw, topi = torch.topk(probs, k, dim=-1, sorted=True)
     topw = topw / topw.sum(dim=-1, keepdim=True)
     eid = topi.reshape(n * k)
@@ -221,7 +242,8 @@ def moe_a2a(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     tok = torch.arange(n * k, device=x.device) // k
     order = torch.argsort(eid, stable=True)
     eid_s, w_s, tok_s = eid[order], w[order], tok[order]
-    counts = torch.bincount(eid, minlength=e)
+    counts = torch.zeros(e, dtype=eid.dtype, device=eid.device).scatter_add_(
+        0, eid, torch.ones_like(eid))
     offsets = torch.cumsum(counts, dim=0) - counts
     rank = torch.arange(n * k, device=x.device) - offsets[eid_s]
     in_cap = rank < cap
@@ -237,9 +259,10 @@ def moe_a2a(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     buf_g = _AllGather1.apply(buf_my, f_group) if f_group is not None else buf_my
 
     # 4. expert matmuls on local weight shards
-    gate = _shard(_shard(p.gate, 0, j, n_model), 2, i_f, n_f)
-    up = _shard(_shard(p.up, 0, j, n_model), 2, i_f, n_f)
-    down = _shard(_shard(p.down, 0, j, n_model), 1, i_f, n_f)
+    if not local:
+        gate = _shard(_shard(gate, 0, j, n_model), 2, i_f, n_f)
+        up = _shard(_shard(up, 0, j, n_model), 2, i_f, n_f)
+        down = _shard(_shard(down, 0, j, n_model), 1, i_f, n_f)
     h = F.silu(torch.bmm(buf_g, gate)) * torch.bmm(buf_g, up)
     o_part = torch.bmm(h, down)                         # partial over f shards
 

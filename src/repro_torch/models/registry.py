@@ -5,7 +5,8 @@
 module, parameters uninitialised), ``init(cfg, generator, device)``,
 ``param_specs(cfg)`` (each parameter's logical sharding axes),
 ``loss_fn(model, cfg, batch)``, ``init_cache(cfg, batch, max_len, dtype,
-device)``, ``prefill(model, cfg, batch, cache)`` and ``decode_step(model,
+device)``, ``cache_specs(cfg)`` (the cache's logical axes, keyed as the
+cache), ``prefill(model, cfg, batch, cache)`` and ``decode_step(model,
 cfg, token, cache)``, so the trainer and the serving engine are
 family-agnostic.  The vlm and encdec families take their stub frontends'
 inputs through the batch: ``vision_embeds`` (B, V, d) and ``frames`` (B,
@@ -30,6 +31,7 @@ class Family:
     param_specs: Callable
     loss_fn: Callable
     init_cache: Callable
+    cache_specs: Callable
     prefill: Callable
     decode_step: Callable
 
@@ -54,7 +56,7 @@ def _enc_prefill(model, cfg, batch, cache):
 
 _FAMILIES: Dict[str, Family] = {
     fam: Family(fam, cls, mod.init, mod.param_specs, mod.loss_fn,
-                mod.init_cache, pre, mod.decode_step)
+                mod.init_cache, mod.cache_specs, pre, mod.decode_step)
     for fam, mod, cls, pre in (
         ("dense", transformer, transformer.Transformer, _tfm_prefill),
         ("moe", transformer, transformer.Transformer, _tfm_prefill),

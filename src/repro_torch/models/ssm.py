@@ -27,11 +27,13 @@ from torch import nn
 
 from ..convert import torch_dtype
 from ..kernels import ops as kops
+from ..parallel.sharding import (axis_index, axis_size, constrain, fit,
+                                 local_apply, logical_to_spec, weight)
 from . import layers as L
 
 __all__ = ["segsum", "ssd_chunked", "ssd_decode_step", "Mamba", "MambaLM",
            "init", "mamba_specs", "layer_specs", "param_specs", "forward",
-           "loss_fn", "init_cache", "prefill", "decode_step"]
+           "loss_fn", "init_cache", "cache_specs", "prefill", "decode_step"]
 
 Cache = Dict[str, torch.Tensor]
 
@@ -135,6 +137,54 @@ def _causal_conv(xBC, w, b, state=None):
     return F.silu(out + b), xfull[:, -(width - 1):]
 
 
+def _heads_split(cfg) -> Optional[str]:
+    """``"tensor"`` when the tensor axes split the SSD heads evenly and
+    each rank's heads read whole groups (or one group), else None."""
+    n = axis_size("tensor")
+    h, g = cfg.ssm_heads, cfg.ssm_groups
+    if n == 1 or h % n or logical_to_spec(("batch", "tensor"))[1] is None:
+        return None             # (the batch takes the tensor axes: moe_ep)
+    h_loc, per = h // n, h // g
+    return "tensor" if h_loc % per == 0 or per % h_loc == 0 else None
+
+
+def _mixer(cfg, split, xBC, dtp, A_log, dt_bias, D, ssm0, dtype):
+    """The SSD part of the block on this rank's heads (all of them on one
+    device): xBC (B, S, C) after the conv, dtp (B, S, H), ssm0 (B, H_loc,
+    N, P) or None.  Returns (y (B, S, H_loc * P) in ``dtype``, the new
+    state)."""
+    b, s, _ = xBC.shape
+    di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    pdim = cfg.ssm_head_dim
+    xin = xBC[..., :di].reshape(b, s, h, pdim)
+    Bm = xBC[..., di:di + g * n].reshape(b, s, g, n)
+    Cm = xBC[..., di + g * n:].reshape(b, s, g, n)
+    if split is not None and axis_size(split) > 1:   # this rank's heads
+        h_loc = h // axis_size(split)
+        h0 = axis_index(split) * h_loc
+        per = h // g
+        g0, g1 = h0 // per, (h0 + h_loc - 1) // per + 1
+        xin, Bm, Cm = xin[:, :, h0:h0 + h_loc], Bm[:, :, g0:g1], Cm[:, :, g0:g1]
+        dtp, dt_bias = dtp[..., h0:h0 + h_loc], dt_bias[h0:h0 + h_loc]
+        A_log, D = A_log[h0:h0 + h_loc], D[h0:h0 + h_loc]
+    dt = F.softplus(dtp.float() + dt_bias)                          # (B,S,H)
+    dA = dt * -torch.exp(A_log)
+    xdt = xin.float() * dt[..., None]
+
+    if ssm0 is not None and s == 1:
+        y, new_ssm = ssd_decode_step(
+            ssm0.float(), xdt[:, 0], dA[:, 0], Bm[:, 0].float(), Cm[:, 0].float())
+        y = y[:, None]
+    else:
+        init_state = ssm0.float() if ssm0 is not None else None
+        ssd = kops.ssd_chunked_kernel if cfg.use_flash else ssd_chunked
+        y, new_ssm = ssd(xdt, dA, Bm.float(), Cm.float(),
+                         chunk=cfg.ssd_chunk, initial_state=init_state)
+
+    y = y + xin.float() * D[None, None, :, None]
+    return y.reshape(b, s, -1).to(dtype), new_ssm
+
+
 class Mamba(nn.Module):
     """The Mamba2 block; the config passed to ``forward`` decides the path
     (``use_flash``, chunk), the one given here only the shapes."""
@@ -173,39 +223,38 @@ class Mamba(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
         """x (B,S,d) -> (B,S,d).  cache {"conv": (B,W-1,C), "ssm":
         (B,H,N,P)}, written in place."""
-        b, s, _ = x.shape
-        di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
-        pdim = cfg.ssm_head_dim
-
-        zxbcdt = x @ self.in_proj
+        di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+        zxbcdt = constrain(x @ weight(self.in_proj, ("fsdp", "tensor")),
+                           ("batch", None, "tensor"))
+        if torch.is_grad_enabled():
+            # whole along its features before it is cut into z, xBC and dt
+            # (the cuts do not fall on the split), so that the gradient comes
+            # back in the layout above: DTensor's own slice backward may
+            # split it along the sequence, which the in-projection's backward
+            # cannot flatten with a batch split (one row per data rank)
+            zxbcdt = constrain(zxbcdt, ("batch", None, None))
         z = zxbcdt[..., :di]
         xBC = zxbcdt[..., di:2 * di + 2 * g * n]
         dtp = zxbcdt[..., 2 * di + 2 * g * n:]
         conv_state = cache["conv"] if cache is not None else None
-        xBC, new_conv = _causal_conv(xBC, self.conv_w, self.conv_b, conv_state)
-
-        xin = xBC[..., :di].reshape(b, s, h, pdim)
-        Bm = xBC[..., di:di + g * n].reshape(b, s, g, n)
-        Cm = xBC[..., di + g * n:].reshape(b, s, g, n)
-        dt = F.softplus(dtp.float() + self.dt_bias)                 # (B,S,H)
-        dA = dt * -torch.exp(self.A_log)
-        xdt = xin.float() * dt[..., None]
-
-        if cache is not None and s == 1:
-            y, new_ssm = ssd_decode_step(
-                cache["ssm"].float(), xdt[:, 0], dA[:, 0],
-                Bm[:, 0].float(), Cm[:, 0].float())
-            y = y[:, None]
-        else:
-            init_state = cache["ssm"].float() if cache is not None else None
-            ssd = kops.ssd_chunked_kernel if cfg.use_flash else ssd_chunked
-            y, new_ssm = ssd(xdt, dA, Bm.float(), Cm.float(),
-                             chunk=cfg.ssd_chunk, initial_state=init_state)
-
-        y = y + xin.float() * self.D[None, None, :, None]
-        y = y.reshape(b, s, di).to(x.dtype)
+        # the depthwise conv on each rank's channels, the scan on its heads
+        cax = fit(("batch", None, "tensor"), xBC.shape)
+        xBC, new_conv = local_apply(
+            _causal_conv, (xBC, self.conv_w, self.conv_b, conv_state),
+            (cax, cax[1:], cax[2:], cax), (cax, cax), summed=(1, 2))
+        split = _heads_split(cfg)
+        y, new_ssm = local_apply(
+            lambda xBC, dtp, A_log, dt_bias, D, ssm0: _mixer(
+                cfg, split, xBC, dtp, A_log, dt_bias, D, ssm0, x.dtype),
+            (xBC, dtp, self.A_log, self.dt_bias, self.D,
+             cache["ssm"] if cache is not None else None),
+            (("batch", None, None),) * 2 + ((None,),) * 3
+            + (("batch", split, None, None),),
+            (("batch", None, split), ("batch", split, None, None)),
+            summed=(0, 1, 2, 3, 4))
         y = self.norm(y * F.silu(z))
-        out = y @ self.out_proj
+        out = constrain(y @ weight(self.out_proj, ("tensor", "fsdp")),
+                        ("batch", "seq", "fsdp"))
         new_cache = None
         if cache is not None:
             cache["conv"].copy_(new_conv)
@@ -303,6 +352,12 @@ def init_cache(cfg, batch: int, max_len: int = 0, dtype=torch.bfloat16,
                             cfg.ssm_head_dim), dtype=torch.float32,
                            device=device),
     }
+
+
+def cache_specs(cfg) -> Dict[str, tuple]:
+    """The cache's logical sharding axes, keyed as ``init_cache``'s dict."""
+    return {"conv": (None, "batch", None, "tensor"),
+            "ssm": (None, "batch", "tensor", None, None)}
 
 
 def prefill(model: MambaLM, cfg, tokens: torch.Tensor, cache: Cache):

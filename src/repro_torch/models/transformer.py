@@ -17,7 +17,8 @@ token embeddings: positions run over V + S, the cache holds V + S entries,
 and the loss is taken on the text positions only.
 
 Public surface (as the reference's): ``init``, ``param_specs``,
-``forward``, ``loss_fn``, ``init_cache``, ``prefill``, ``decode_step``.  Under autograd each layer
+``forward``, ``loss_fn``, ``init_cache``, ``cache_specs``, ``prefill``,
+``decode_step``.  Under autograd each layer
 runs under the config's ``remat`` policy (``layers.remat``).
 """
 
@@ -32,7 +33,7 @@ from ..convert import torch_dtype
 from . import layers as L
 
 __all__ = ["Transformer", "init", "param_specs", "forward", "loss_fn",
-           "init_cache", "prefill", "decode_step"]
+           "init_cache", "cache_specs", "prefill", "decode_step"]
 
 Cache = Dict[str, torch.Tensor]
 
@@ -171,6 +172,13 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "len": torch.zeros((cfg.n_layers,), dtype=torch.int32, device=device)}
+
+
+def cache_specs(cfg) -> Dict[str, tuple]:
+    """The cache's logical sharding axes, keyed as ``init_cache``'s dict."""
+    return {"k": (None, "batch", "kvseq", "kv", None),
+            "v": (None, "batch", "kvseq", "kv", None),
+            "len": ()}
 
 
 def prefill(model: Transformer, cfg, tokens: torch.Tensor, cache: Cache,

@@ -45,6 +45,17 @@ __all__ = [
     "placements",
     "mesh_sharding",
     "tree_shardings",
+    "whole_along",
+    "replicated",
+    "place",
+    "place_tree",
+    "place_module",
+    "axis_size",
+    "axis_index",
+    "axis_group",
+    "fit",
+    "partial_grads",
+    "local_apply",
 ]
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -147,13 +158,28 @@ def _ctx() -> Tuple[Optional[Any], ShardingRules]:
 
 @contextmanager
 def use_mesh(mesh: Optional[Any], rules: ShardingRules = DEFAULT_RULES):
-    """Install mesh+rules ambiently for the calling thread."""
+    """Install mesh+rules ambiently for the calling thread.  With a mesh,
+    DTensor also takes a plain tensor met beside a ``DTensor`` (a mask, a
+    position range the model builds) as replicated: every rank builds the
+    same one (``implicit_replication``; DTensor's switch is per process)."""
     prev = _ctx()
     _state.mesh, _state.rules = mesh, rules
     try:
-        yield
+        if mesh is None or _implicit_replication_on():
+            yield            # a nested use keeps the outer one's switch on
+        else:
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            with implicit_replication():
+                yield
     finally:
         _state.mesh, _state.rules = prev
+
+
+def _implicit_replication_on() -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return bool(DTensor._op_dispatcher._allow_implicit_replication)
 
 
 def current_mesh() -> Optional[Any]:
@@ -228,6 +254,17 @@ def placements(spec: Sequence[MeshAxes], mesh: Any) -> Tuple[Any, ...]:
     return tuple(out)
 
 
+def _unit_dims_whole(plc: Sequence[Any], shape: Sequence[int]) -> Tuple[Any, ...]:
+    """``plc`` with a split of a dimension of size 1 made ``Replicate``:
+    the same layout (one rank holds the row either way on a mesh axis of
+    size 1, the case it arises in: a batch of one on a (1, 1) mesh), which
+    DTensor can flatten with the next dimension."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(Replicate() if p.is_shard() and shape[p.dim] == 1 else p
+                 for p in plc)
+
+
 def constrain(x: torch.Tensor, logical_axes: Sequence[Optional[str]]) -> torch.Tensor:
     """A ``DTensor`` redistributed to the spec's placements under the
     ambient mesh; anything else, or no mesh, is returned unchanged."""
@@ -236,7 +273,8 @@ def constrain(x: torch.Tensor, logical_axes: Sequence[Optional[str]]) -> torch.T
     mesh, rules = _ctx()
     if mesh is None or not isinstance(x, DTensor):
         return x
-    want = placements(logical_to_spec(logical_axes, mesh, rules), mesh)
+    want = _unit_dims_whole(
+        placements(logical_to_spec(logical_axes, mesh, rules), mesh), x.shape)
     if tuple(x.placements) == want:
         return x
     return x.redistribute(mesh, want)
@@ -277,3 +315,178 @@ def tree_shardings(mesh: Any, logical_tree: Any,
         return type(logical_tree)(*(tree_shardings(mesh, v, rules)
                                     for v in logical_tree))
     raise TypeError(f"not a spec tree: {logical_tree!r}")
+
+
+# ------------------------------------------------------------- placement
+def whole_along(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A ``DTensor`` gathered along tensor dimension ``dim`` (its other
+    splits kept); anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor) or not any(p.is_shard(dim) for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_shard(dim) else p for p in x.placements))
+
+
+def replicated(x: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """``x`` as a ``DTensor`` replicated on ``mesh`` (every rank holds the
+    same ``x``); a ``DTensor`` as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def place(x: torch.Tensor, mesh: Any, plc: Sequence[Any]) -> torch.Tensor:
+    """``x`` as a ``DTensor`` with placements ``plc`` on ``mesh``, this
+    rank's shard cut from ``x`` itself (every rank holds the same ``x``: no
+    collective) into storage of its own, so that no rank keeps the whole."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    plc = _unit_dims_whole(plc, x.shape)
+    d = distribute_tensor(x.detach(), mesh, plc, src_data_rank=None)
+    return DTensor.from_local(d.to_local().clone(), mesh, plc,
+                              run_check=False, shape=d.shape, stride=d.stride())
+
+
+def place_tree(tree: Any, plc_tree: Any, mesh: Any) -> Any:
+    """``place`` every tensor leaf of a tree (dicts, named tuples) with the
+    placements at the same place of ``plc_tree`` (``tree_shardings``);
+    other leaves are kept as they are."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, plc_tree[k], mesh) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(place_tree(v, p, mesh) for v, p in zip(tree, plc_tree)))
+    if isinstance(tree, torch.Tensor):
+        return place(tree, mesh, plc_tree)
+    return tree
+
+
+def place_module(model: torch.nn.Module, plc: Dict[str, Any], mesh: Any
+                 ) -> torch.nn.Module:
+    """Replace every parameter of ``model`` (in place) by its ``place``d
+    ``DTensor``; ``plc`` maps parameter names to placements."""
+    for name, p in list(model.named_parameters()):
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name) if mod_name else model
+        setattr(mod, leaf, torch.nn.Parameter(place(p, mesh, plc[name]),
+                                              requires_grad=p.requires_grad))
+    return model
+
+
+# ------------------------------------------------- local (per-shard) code
+def _mesh_axes(logical: Optional[str]) -> Tuple[str, ...]:
+    mesh, rules = _ctx()
+    if mesh is None:
+        return ()
+    a = _filter_axes(mesh, rules.lookup(logical))
+    return () if a is None else ((a,) if isinstance(a, str) else tuple(a))
+
+
+def axis_size(logical: Optional[str]) -> int:
+    """How many ways the ambient rules split a dimension of ``logical``
+    axis (1 without a mesh)."""
+    mesh, _ = _ctx()
+    n = 1
+    for a in _mesh_axes(logical):
+        n *= mesh.size(_axis_names(mesh).index(a))
+    return n
+
+
+def axis_index(logical: Optional[str]) -> int:
+    """This rank's row-major index over the mesh axes of ``logical``."""
+    mesh, _ = _ctx()
+    idx = 0
+    if mesh is None:
+        return idx
+    coord = mesh.get_coordinate()
+    for a in _mesh_axes(logical):
+        i = _axis_names(mesh).index(a)
+        idx = idx * mesh.size(i) + coord[i]
+    return idx
+
+
+def axis_group(logical: Optional[str]) -> Any:
+    """The process group over the mesh axes of ``logical`` (None when they
+    are fewer than two ranks)."""
+    mesh, _ = _ctx()
+    axes = _mesh_axes(logical)
+    if axis_size(logical) == 1:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def fit(logical_axes: Sequence[Optional[str]], shape: Sequence[int]
+        ) -> Tuple[Optional[str], ...]:
+    """``logical_axes`` with every axis dropped (replicated there) whose
+    split does not divide its dimension of ``shape``, or whose mesh axes an
+    earlier entry takes (``logical_to_spec`` drops it the same way): the
+    layout of slices of it (a weight's rows) then matches."""
+    spec = logical_to_spec(logical_axes)
+    return tuple(a if a is None or (spec[d] is not None
+                                    and shape[d] % axis_size(a) == 0) else None
+                 for d, a in enumerate(logical_axes))
+
+
+def partial_grads(plc: Sequence[Any]) -> Tuple[Any, ...]:
+    """``plc`` with every ``Replicate`` made ``Partial``: the layout of the
+    gradient of an input that every rank holds whole along those mesh
+    dimensions but uses for its own part of the work (its batch shard, its
+    heads), so that the ranks' gradients must be summed."""
+    from torch.distributed.tensor import Partial
+
+    return tuple(Partial() if p.is_replicate() else p for p in plc)
+
+
+def local_apply(fn, args: Sequence[Any], in_axes: Sequence[Any],
+                out_axes: Sequence[Any], summed: Sequence[int] = ()):
+    """Run ``fn`` on each rank's shard: each ``DTensor`` argument is
+    redistributed to its logical layout in ``in_axes`` and passed as its
+    local tensor (``None`` in ``in_axes``: passed as it is), and each
+    output is wrapped as a ``DTensor`` with its layout in ``out_axes``
+    (evenly split; ``None``: returned as it is).  The gradient of an
+    argument keeps its layout, but for the arguments at the positions
+    ``summed``, which each rank uses for its own part of the work: their
+    gradients are summed over the mesh dimensions they are whole on
+    (``partial_grads``).  The reference's GSPMD
+    partitions such code itself; DTensor has no strategy for some of its
+    ops (an in-place write at a traced position, a sort), so the port
+    says per op what each rank computes.  Without a mesh, or with no
+    ``DTensor`` argument, it is ``fn(*args)``.  Differentiable."""
+    from torch.distributed.tensor import DTensor
+
+    mesh, rules = _ctx()
+    if mesh is None or not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    local = []
+    for i, (a, ax) in enumerate(zip(args, in_axes)):
+        if isinstance(a, DTensor) and ax is not None:
+            want = _unit_dims_whole(
+                placements(logical_to_spec(ax, mesh, rules), mesh), a.shape)
+            if tuple(a.placements) != want:
+                a = a.redistribute(mesh, want)
+            a = a.to_local(grad_placements=partial_grads(want) if i in summed
+                           else None)
+        local.append(a)
+    out = fn(*local)
+    if out is None:
+        return None
+    single = not isinstance(out, tuple)
+    outs = (out,) if single else out
+    def wrap(o, ax):
+        plc = placements(logical_to_spec(ax, mesh, rules), mesh)
+        shape = list(o.shape)          # the global shape of an even split
+        for i, p in enumerate(plc):
+            if p.is_shard():
+                shape[p.dim] *= mesh.size(i)
+        return DTensor.from_local(o, mesh, _unit_dims_whole(plc, shape),
+                                  run_check=False)
+
+    wrapped = tuple(o if ax is None or not isinstance(o, torch.Tensor)
+                    else wrap(o, ax) for o, ax in zip(outs, out_axes))
+    return wrapped[0] if single else wrapped

@@ -18,6 +18,7 @@ _LAZY = {
     "cosine_lr": "optim",
     "TrainState": "trainer", "init_state": "trainer",
     "make_train_step": "trainer", "state_specs": "trainer",
+    "place_state": "trainer",
 }
 
 __all__ = ["AsyncCheckpointer", "load_pytree", "load_pytree_flat",

@@ -21,6 +21,10 @@ reference's ``layers/<name>``, see ``convert``):
   reference's flatten order (sorted dict keys at every level), a stacked
   leaf's sum being the sum of its layers' sums.
 
+The leaves may be ``DTensor``s (the sharded step): the global norm's sum
+of squares is then reduced across ranks (``full_tensor``) and every
+update is elementwise on each rank's shards.
+
 ``adamw_update`` updates the parameters and the moments in place and
 returns them (the reference returns new trees; at full width a second copy
 of the moments would not fit on the card).
@@ -97,7 +101,7 @@ def adamw_init(params: Any, cfg: AdamWConfig) -> OptState:
     named = _named(params)
     dt = torch_dtype(cfg.state_dtype)
     dev = next(iter(named.values())).device
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)  # noqa: E731
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     m={n: zeros(p) for n, p in named.items()},
                     v={n: zeros(p) for n, p in named.items()})
@@ -122,6 +126,8 @@ def global_norm(tree: Any) -> torch.Tensor:
             sq = torch.sum(torch.square(named[n].detach().float()))
             leaf = sq if leaf is None else leaf + sq
         total = total + leaf
+    if hasattr(total, "full_tensor"):  # DTensor leaves: reduce across ranks
+        total = total.full_tensor()
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 

@@ -15,28 +15,39 @@ compression (``compress_grads``): each microbatch's gradient is quantized
 per leaf (symmetric, absmax scale) before it enters the accumulator, with
 an error-feedback residual folded into the next microbatch, as in the
 reference; a leaf is the reference's, so the layers of a stacked leaf
-share one scale.  The reference's ZeRO hint (``constrain`` of the gradients to
-the parameter layout) is the identity on one device and is left out.
+share one scale.
 
 ``state_specs`` is the logical-axis tree of the whole state (ZeRO-3: the
-moments like the parameters), keyed as the state is.  The parameters stay
-plain tensors; a batch placed on a mesh (``data.shard_batch``) enters the
-step as this rank's local shard.
+moments like the parameters), keyed as the state is.  With plain-tensor
+parameters a batch placed on a mesh (``data.shard_batch``) enters the step
+as this rank's local shard.  With the parameters as ``DTensor``s (placed
+by ``parallel.sharding.place_module``) the step is the sharded one: the
+batch is constrained to the batch axes (reference trainer.py:96) and the
+gradients come back with the parameters' layouts, reduced across the data
+ranks by DTensor's redistribution as GSPMD reduces the reference's; under
+``weight_gather`` rules they are constrained to the parameter layout (the
+reference's ZeRO hint, trainer.py:151: a reduce-scatter).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.registry import get_family
+from ..parallel.sharding import (DEFAULT_RULES, axis_size, constrain,
+                                 current_mesh, current_rules, local_apply,
+                                 mesh_sharding, place, place_module,
+                                 place_tree, use_mesh)
 from ..serve.engine import default_device
 from .optim import (AdamWConfig, OptState, adamw_init, adamw_update,
                     reference_order)
 
-__all__ = ["TrainState", "make_train_step", "init_state", "state_specs"]
+__all__ = ["TrainState", "make_train_step", "init_state", "state_specs",
+           "place_state"]
 
 
 class TrainState(NamedTuple):
@@ -64,10 +75,48 @@ def state_specs(cfg) -> TrainState:
                       rng=())
 
 
+def place_state(state: TrainState, plc: TrainState, mesh: Any) -> TrainState:
+    """``state`` with its parameters (replaced in place in the model) and
+    moments as ``DTensor``s with the placements ``plc``
+    (``tree_shardings(mesh, state_specs(cfg), rules)``): each rank keeps
+    its shard of the whole state it holds."""
+    place_module(state.params, plc.params, mesh)
+    return state._replace(opt=state.opt._replace(
+        m=place_tree(state.opt.m, plc.opt.m, mesh),
+        v=place_tree(state.opt.v, plc.opt.v, mesh)))
+
+
 def _local(v: Any) -> Any:
     """This rank's shard of a batch leaf placed on a mesh (a ``DTensor``);
     anything else as it is."""
     return v.to_local() if hasattr(v, "to_local") else v
+
+
+def _is_sharded(model) -> bool:
+    return hasattr(next(model.parameters()), "placements")
+
+
+def _batch_leaf(v: Any, dev) -> Any:
+    """A batch leaf for the sharded step: a ``DTensor`` constrained to the
+    batch axes (a host array or tensor, the same on every rank, is placed
+    first)."""
+    axes = ("batch",) + (None,) * (np.ndim(v) - 1)
+    if not hasattr(v, "placements"):
+        mesh = current_mesh()
+        v = place(torch.as_tensor(v).to(dev), mesh,
+                  mesh_sharding(mesh, axes, current_rules() or DEFAULT_RULES))
+    return constrain(v, axes)
+
+
+def _micro(v: torch.Tensor, accum_steps: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``accum_steps``: rows ``i*mb:(i+1)*mb``, a
+    ``DTensor`` one regathered over the batch axes first (the rows of one
+    microbatch lie on a few data ranks) and split over them again."""
+    mb = v.shape[0] // accum_steps
+    axes = (None,) * v.dim()
+    out = local_apply(lambda v: v.reshape((accum_steps, mb) + tuple(v.shape[1:]))[i],
+                      (v,), (axes,), (axes,))
+    return constrain(out, ("batch",) + axes[1:])
 
 
 # ----------------------------------------------------------- int8 compression
@@ -114,7 +163,8 @@ def make_train_step(
     microbatches.  Metrics are 0-d float32 tensors: ``loss``, ``lr``,
     ``grad_norm``."""
     opt_cfg = opt_cfg or AdamWConfig(state_dtype=cfg.opt_state_dtype)
-    loss_fn = get_family(cfg).loss_fn
+    fam = get_family(cfg)
+    loss_fn = fam.loss_fn
 
     def grads_of(model, batch):
         names, params = zip(*model.named_parameters())
@@ -125,24 +175,42 @@ def make_train_step(
     def train_step(state: TrainState, batch: Dict[str, Any]):
         model = state.params
         dev = next(model.parameters()).device
-        batch = {k: torch.as_tensor(_local(v)).to(dev) for k, v in batch.items()}
+        sharded = _is_sharded(model)
+        if sharded:
+            batch = {k: _batch_leaf(v, dev) for k, v in batch.items()}
+        else:
+            batch = {k: torch.as_tensor(_local(v)).to(dev)
+                     for k, v in batch.items()}
 
         if accum_steps == 1:
             loss, grads = grads_of(model, batch)
         else:
-            micro = [{k: v.reshape((accum_steps, v.shape[0] // accum_steps)
-                                   + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()} for i in range(accum_steps)]
+            mb_rules = current_rules()
+            if sharded:
+                if (next(iter(batch.values())).shape[0] // accum_steps) % \
+                        axis_size("batch"):
+                    # a microbatch the batch axes do not split evenly is
+                    # replicated over them, as make_cell does a small batch
+                    mb_rules = mb_rules.with_(batch=None)
+                with use_mesh(current_mesh(), mb_rules):
+                    micro = [{k: _micro(v, accum_steps, i) for k, v in batch.items()}
+                             for i in range(accum_steps)]
+            else:
+                micro = [{k: v.reshape((accum_steps, v.shape[0] // accum_steps)
+                                       + tuple(v.shape[1:]))[i]
+                          for k, v in batch.items()} for i in range(accum_steps)]
             # accumulate in the optimizer-state dtype, as the reference does
             acc_dt = getattr(torch, opt_cfg.state_dtype)
-            gsum = {n: torch.zeros(p.shape, dtype=acc_dt, device=dev)
+            gsum = {n: torch.zeros_like(p, dtype=acc_dt)
                     for n, p in model.named_parameters()}
-            err = ({n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+            err = ({n: torch.zeros_like(p, dtype=torch.float32)
                     for n, p in model.named_parameters()}
                    if compress_grads else None)
             losses = []
             for mb in micro:
-                l, g = grads_of(model, mb)
+                with (use_mesh(current_mesh(), mb_rules) if sharded
+                      else contextlib.nullcontext()):
+                    l, g = grads_of(model, mb)
                 losses.append(l)
                 with torch.no_grad():
                     if err is None:
@@ -153,6 +221,12 @@ def make_train_step(
                 del g
             grads = {n: a / accum_steps for n, a in gsum.items()}
             loss = torch.mean(torch.stack(losses))
+
+        # the reference's ZeRO hint: gradients to the parameter layout
+        rules = current_rules()
+        if sharded and rules is not None and rules.weight_gather:
+            pspecs = fam.param_specs(cfg)
+            grads = {n: constrain(g, pspecs[n]) for n, g in grads.items()}
 
         _, new_opt, om = adamw_update(model, grads, state.opt, opt_cfg)
         metrics = {"loss": loss, **om}

@@ -55,7 +55,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
         "repro_torch.models.registry",
         "repro_torch.serve", "repro_torch.serve.engine",
         "repro_torch.launch", "repro_torch.launch.serve",
-        "repro_torch.launch.train",
+        "repro_torch.launch.train", "repro_torch.launch.hlo",
+        "repro_torch.launch.specs", "repro_torch.launch.dryrun",
         "repro_torch.configs",
         "repro_torch.train", "repro_torch.train.checkpoint",
         "repro_torch.train.data", "repro_torch.train.optim",
@@ -185,6 +186,35 @@ def test_explorer_and_mesh_default_to_cuda_and_never_fall_back():
         build_scenario("rendezvous_depth1")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_host_mesh(("data", "model"))
+
+
+_MESH_OVER_GLOO = """
+import torch, torch.distributed as dist
+from repro_torch.launch.mesh import make_host_mesh
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+try:
+    make_host_mesh(("data", "model"))
+except RuntimeError as e:
+    print("RAISED", e)
+else:
+    print("BUILT", torch.cuda.is_available())
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def test_cuda_mesh_over_a_running_gloo_group_raises():
+    """A running gloo group does not make the default (``"cuda"``) host mesh
+    fall back to the CPU: without a card it raises for want of CUDA, and
+    with one for the gloo backend."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", _MESH_OVER_GLOO], env=env,
+                         check=True, capture_output=True, text=True,
+                         timeout=120)
+    last = out.stdout.strip().splitlines()[-1]
+    assert last.startswith("RAISED"), last
+    assert ("CUDA is not available" in last
+            or "over a running 'gloo' group" in last), last
 
 
 def test_port_sources_name_no_jax_import():

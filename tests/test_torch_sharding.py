@@ -1,6 +1,6 @@
 """The port's sharding rules (``repro_torch.parallel.sharding``) beside the
 JAX package's: the twin of the rule cases of ``tests/test_sharding.py``
-(its HLO and roofline cases belong to ``launch/hlo.py``, not ported yet).
+(its HLO and roofline cases are in ``tests/test_torch_hlo.py``).
 
 Each rule case runs on a (1, 1) ``("data", "model")`` mesh in both
 packages -- the port's over a gloo group of world size 1 -- and every port
@@ -44,8 +44,14 @@ def _jmesh():
 
 @pytest.fixture(scope="module")
 def mesh():
+    """A (1, 1) CPU mesh over a world-size-1 gloo group, destroyed at the
+    end of the module so that no later test sees a running group."""
+    import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
-    return make_host_mesh(("data", "model"), device_type="cpu")
+    started = not dist.is_initialized()
+    yield make_host_mesh(("data", "model"), device_type="cpu")
+    if started and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _same(spec, jspec):
