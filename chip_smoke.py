@@ -28,7 +28,8 @@ JSON line and any failure exiting non-zero:
    (batch 2) in bf16, and the shapes phase 6's other models hand it
    (``FA_FAMILY_CASES``: zamba2's 32 heads of 80 with its 4096 window at
    2048 and 6144 tokens, internvl2's 64/8 heads of 128 at 2048 + 256,
-   phi3.5-moe's 32/8, whisper's decoder at 448); K4 with 1, 2 and 4
+   phi3.5-moe's 32/8, whisper's decoder at 448, and phase 9's training
+   shapes of those four at batch 2); K4 with 1, 2 and 4
    groups, head counts that leave a short head subset, P above 64, ragged
    S, the serving shape, the training shape and zamba2's (N = 64); TF32
    off, so the plain versions are float32;
@@ -69,9 +70,10 @@ JSON line and any failure exiting non-zero:
    count on the path: phase 3 for K1/K2, phase 6's requests of all six
    models for K3 bf16 and K4 (``launches_by_arch`` splits them), phase 6's
    float32 gates for K3 float32; K1/K2 also carry their launches in each
-   run of phase 8 (``launches_faults``), K3 bf16 and K4 in phase 9's
-   training steps (``launches_train``), K3 float32 in phase 14 (b)'s
-   forward (``launches_parallel``);
+   run of phase 8 (``launches_faults``), K3 and K4 in phase 9 by part and
+   model (``launches_train``: the bf16 steps, the float32 gates, the
+   accumulation runs, the resume), K3 float32 in phase 14 (b)'s forward
+   (``launches_parallel``) and in phase 16 (``launches_insitu``);
 8. faults -- checkpointed restart and elastic rescale on ``cuda:0`` at the
    field size of phase 3: one ``nyx`` evolves a 256^3 float32 density (from
    ``--seed``) through 8 snapshots with a torch diffusion step and
@@ -93,26 +95,56 @@ JSON line and any failure exiting non-zero:
    per block), K2's to ``viz``'s.  Printed per run: wall time per snapshot,
    checkpoint blocking time and bytes, restart and rescale latency and cut
    step, the calls and launches;
-9. train -- ``llama3.2-3b`` and then ``mamba2-2.7b`` trained with
-   ``repro_torch.train`` on ``cuda:0``, K3 and K4 under autograd (their
-   forward the kernel, their backward a plain recompute).  (a) A gradient
-   gate at full width and 2 layers on float32 weights, batch 1 x 2048
-   tokens: the kernel path's loss within 1e-5 and every parameter's
-   gradient within 1e-4 (relative L2) of the plain path's.  (b) Full width
-   and depth as configured (bf16, ``remat="full"``, ``use_flash``): 4
-   steps of ``make_train_step`` on batch 2 x 2048 tokens of
-   ``SyntheticCorpus(seed)`` with ``AdamWConfig(lr=1e-3, warmup_steps=1,
-   total_steps=4)``; every loss finite, the 4th below the 1st, the kernel
-   launched exactly 2 x layers per step (the forward and the checkpoint's
-   recompute; counts set to 0 just before the 4 steps and read just after),
-   the other model kernel and the plain versions of K3/K4 never.  Printed:
-   seconds per step, tokens/s, peak device memory, and, from a fifth step
-   taken under ``torch.profiler``, the device time per step by kernel kind
-   and its share of the unprofiled step's wall time (the busy share), and
-   the wall time of one more AdamW update (on zero gradients).  (c) Each autograd
-   Function's gradients of sum(out^2) against autograd through the plain
-   op on the card at 2e-4 in float32: K3 at the serving shape, K4 at
-   S = 2048;
+9. train -- six models trained one after the other with
+   ``repro_torch.train`` on ``cuda:0`` (``TRAIN_ARCHS``): llama3.2-3b,
+   mamba2-2.7b, zamba2-2.7b (K3 with its 4096 window and K4 in one step),
+   whisper-base (K3 in the decoder; ``frames`` from the seed),
+   phi3.5-moe-42b-a6.6b and internvl2-76b (256 seeded ``vision_embeds``),
+   the last two cut to 4 of their 32 and 80 layers; K3 and K4 under
+   autograd (their forward the kernel, their backward a plain
+   recompute).  (a) A gradient gate at full width on float32 weights,
+   batch 1: 2 layers (zamba2 6, one whole shared-block group; whisper 448
+   tokens, the others 2048), and for zamba2 (a') the same at 6144 tokens,
+   past its window: the kernel path's loss within 1e-5 and every
+   parameter's gradient within 1e-4 (relative L2) of the plain path's,
+   each kernel launched as ``step_launches`` counts it from the config
+   (twice per layer under ``remat``: the forward and the recompute;
+   zamba2's K3 once per shared-block group, which runs outside
+   ``remat``; whisper's decoder only) and none on the plain path.  (b) The
+   layers kept, bf16, remat and moment dtype as configured, ``use_flash``:
+   4 steps of ``make_train_step`` on batch 2 of ``SyntheticCorpus(seed)``
+   and the family's stub input, ``AdamWConfig(lr=1e-3, warmup_steps=1,
+   total_steps=4)`` (lr 0.1 / d_model for phi3.5-moe and internvl2,
+   ``TRAIN_LR``);
+   every loss finite, the 4th below the 1st, each kernel
+   launched exactly 4 x ``step_launches`` (counts set to 0 just before the
+   4 steps and read just after), no plain K3 (causal) or K4 call, peak
+   memory below 80 GB.  Printed per model: seconds per step, tokens/s,
+   peak device memory, and, from a fifth step taken under
+   ``torch.profiler``, the device time per step by kernel kind and its
+   share of the unprofiled step's wall time (the busy share), and the
+   wall time of one more AdamW update (on zero gradients).  (d) For
+   mamba2 (``accum_steps=2``, and with ``compress_grads``) and llama
+   (``accum_steps=2``; compression would need about 80 GB): one plain step
+   and one step of each variant from the same seeded state on the same
+   batch, in float32 at full width and the gate's depth against the
+   tolerances of ``tests/test_train.py`` (accumulation: loss 1e-4, every
+   weight within 5e-4 + 5e-3 |w| of the plain step's; compression: within
+   0.05 x max(global norm, 1) of accumulation's), and in bf16 at full
+   depth with its seconds, peak memory and the same differences recorded;
+   ``train_accum`` lines.  (e) ``repro_torch.launch.train``'s checkpoint
+   resume, llama3.2-3b at full width and 2 layers, 4 steps of 2 x 2048
+   (``RESUME_ARGS``): (A) uninterrupted, (B) with a checkpoint every 2
+   steps, stopped after step 2 as a preempted job is, (C) on (B)'s
+   directory (about 10 GB a checkpoint, so (A) writes none and (C) only
+   its last); (C) restores (B)'s step-2 state bit for bit
+   and its losses of steps 3-4 equal (A)'s within 1e-5; every
+   ``train_state_to_reference`` copy timed (``train_resume``).  (c) Each
+   autograd Function's gradients of sum(out^2) against autograd through
+   the plain op on the card at 2e-4 in float32 (``FN_CASES``): K3 at the
+   serving shape and at zamba2's window gate (1 x 6144 x 32/32 x 80,
+   window 4096; its forward and its backward recompute timed), K4 at
+   mamba's and zamba2's SSD shapes;
 10. ensemble -- ``examples/torch_nucleation_ensemble.py``'s own ``run`` on
    ``cuda:0``: 8 ``freeze`` x 8 ``detector`` instances (``nwriters: 1``,
    stateless detectors relaunched per snapshot) of 4096 atoms for 10
@@ -185,7 +217,17 @@ JSON line and any failure exiting non-zero:
    measured ``max_memory_allocated`` within [0.5, 2.0], logits equal to
    the plain single-device prefill's bit for bit.  No kernel lies on the
    dry run's path (no config sets ``use_flash``), in the reference or here;
-   (b)'s real run counts the launches (``launches_dryrun``).
+   (b)'s real run counts the launches (``launches_dryrun``);
+16. insitu -- ``examples/torch_train_insitu_eval.py``'s ``run`` on
+   ``cuda:0`` with ``--preset 100m`` (a 114M-parameter dense model in
+   float32, 300 steps of 8 x 128 tokens, a snapshot of every weight each
+   10 steps to an evaluator behind ``latest`` flow control; K3 under
+   autograd in the trainer and its forward in the evaluator).  Gates: at
+   least one snapshot scored, every scored snapshot's tensors equal bit
+   for bit to the copy the trainer took at its write, the held-out loss
+   not diverging, the report's dropped count equal to the snapshots
+   written less those scored, K3 launched.  Printed: wall time, steps/s,
+   written, scored and dropped snapshots, peak memory.
 
 The lines before the last are the whole run's wall time (builds included),
 the per-kernel summary and the card's name and power limit; the last line
@@ -258,10 +300,56 @@ F32_LIMIT = {"llama3.2-3b": 1e-4, "mamba2-2.7b": 2e-3, "zamba2-2.7b": 2e-3,
 BF16_RATIO = 2.0
 WINDOW_GATE_S = 6144         # zamba2: one prefill past its 4096-token window
 TIME_S = 2048                # serving shape at which K3 and K4 are timed
-# phase 9: training at full width, one model after the other
-TRAIN_ARCHS = (("llama3.2-3b", "flash_attention"), ("mamba2-2.7b", "ssd_intra_chunk"))
+# phase 9: training at full width, one model after the other: (arch, layers
+# kept of the config's (None: all), the float32 gate's layers, tokens a
+# sequence).  zamba2's gate holds one whole shared-block group (attn_every
+# 6); whisper's decoder context is 448 tokens; phi3.5-moe and internvl2 keep
+# 4 of their 32 and 80 layers: 5.46 and 5.52 B parameters, whose bf16
+# weights and gradients and bf16 moments (their configs' opt_state_dtype)
+# take about 44 GB, and about 65 GB at 6 layers
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
 GATE_LAYERS, GATE_BATCH = 2, 1
+TRAIN_ARCHS = (
+    ("llama3.2-3b", None, GATE_LAYERS, TRAIN_SEQ),
+    ("mamba2-2.7b", None, GATE_LAYERS, TRAIN_SEQ),
+    ("zamba2-2.7b", None, 6, TRAIN_SEQ),
+    ("whisper-base", None, GATE_LAYERS, 448),
+    ("phi3.5-moe-42b-a6.6b", 4, GATE_LAYERS, TRAIN_SEQ),
+    ("internvl2-76b", 4, GATE_LAYERS, TRAIN_SEQ),
+)
+TRAIN_WINDOW_GATE = ("zamba2-2.7b", 6, 6144)   # (a'): past its 4096 window
+# (b)'s learning rate (1 warmup step).  AdamW's first step moves every
+# weight by about lr along its gradient's sign, which shifts a d-wide
+# layer's outputs by about lr x d: at lr 1e-3 and 1e-4 phi3.5-moe's losses
+# went 11.5, 23.3, 14.8, 35.7 and 11.5, 22.6, 14.2, 13.7 on the H100, and
+# internvl2's 13.0, 60.6, 31.3, 14.7 and 13.0, 29.4, 21.6, 20.4, their
+# float32 gates within 1e-7 all the while; the JAX package does the same
+# (d_model 4096, 2 layers, float32, on the CPU: 11.23 then 30.68 at 1e-3
+# and 18.21 at 1e-4, the port within 1e-6; at 3e-5 the loss falls).  The
+# wide models take lr x d_model = 0.1
+TRAIN_LR = {"phi3.5-moe-42b-a6.6b": 0.1 / 4096, "internvl2-76b": 0.1 / 8192}
+TRAIN_LR_DEFAULT = 1e-3
+# (d): one step with gradient accumulation (and int8 compression) after a
+# plain step on the same batch.  llama's compressed step is left out: its
+# float32 error buffer would take the card to about 80 GB
+TRAIN_ACCUM = {"llama3.2-3b": ({"accum_steps": 2},),
+               "mamba2-2.7b": ({"accum_steps": 2},
+                               {"accum_steps": 2, "compress_grads": True})}
+ACCUM_LOSS_RTOL = 1e-4       # tests/test_train.py::test_accum_equivalent_to_full_batch
+ACCUM_TOL = (5e-4, 5e-3)     # its parameters' atol, rtol
+COMPRESS_SHARE = 0.05        # ::test_compressed_grads_close_to_exact: of max(norm, 1)
+# (e): launch.train's checkpoint resume, as phase 14 (c) sizes llama
+RESUME_ARGS = ["--arch", "llama3.2-3b", "--n-layers", str(GATE_LAYERS),
+               "--steps", "4", "--seq-len", str(TRAIN_SEQ),
+               "--global-batch", str(TRAIN_BATCH), "--log-every", "1"]
+# (c): the autograd Functions' gradients: K3 (B, S, H, KV, D, window), K4
+# (B, S, H, P, G, N, chunk), float32
+FN_CASES = {"flash_attention": {"serving": (1, TIME_S, 24, 8, 128, 0),
+                                "zamba2 window": (1, 6144, 32, 32, 80, 4096)},
+            "ssd_intra_chunk": {"mamba": (1, TIME_S, 80, 64, 1, 128, 256),
+                                "zamba2": (1, TIME_S, 80, 64, 1, 64, 256)}}
+# phase 16: the in situ train/eval example's preset
+INSITU_PRESET = "100m"
 LOSS_LIMIT = 1e-5            # kernel vs plain path, float32, relative
 GRAD_LIMIT = 1e-4            # relative L2, every parameter
 FN_GRAD_TOL = 2e-4           # each Function vs the plain op (test_kernels.py)
@@ -565,6 +653,11 @@ FA_FAMILY_CASES = {
     "internvl2 serving": (1, TIME_S + 256, 64, 8, 128, torch.bfloat16, True, 0),
     "phi3.5-moe serving": (1, TIME_S, 32, 8, 128, torch.bfloat16, True, 0),
     "whisper decoder": (1, 448, 8, 8, 64, torch.bfloat16, True, 0),
+    # phase 9's training steps (batch 2)
+    "zamba2 training": (2, TIME_S, 32, 32, 80, torch.bfloat16, True, 4096),
+    "whisper training": (2, 448, 8, 8, 64, torch.bfloat16, True, 0),
+    "phi3.5-moe training": (2, TIME_S, 32, 8, 128, torch.bfloat16, True, 0),
+    "internvl2 training": (2, TIME_S + 256, 64, 8, 128, torch.bfloat16, True, 0),
 }
 # bf16 q/k/v as slices of one fused (B, S, H + 2 KV, D) tensor: strided views
 # with unit D stride, which the kernel reads in place: (B, S, H, KV, D, causal)
@@ -717,18 +810,18 @@ def decode_device_time(fn, n, wall_per_token):
             "decode_kernels_per_token": sum(e.count for e in events) / n}
 
 
-def stub_inputs(cfg, dev, seed):
+def stub_inputs(cfg, dev, seed, batch=1):
     """The frontends' stand-ins of the vlm and encdec families for the
-    logits gates: vision embeddings (1, V, d) and frames (1, S_src, d),
-    N(0, 0.02^2) from the seed (the engine serves zeros, as the reference
-    engine does)."""
+    logits gates and for training: vision embeddings (B, V, d) and frames
+    (B, S_src, d), N(0, 0.02^2) from the seed (the engine serves zeros, as
+    the reference engine does)."""
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     if cfg.family == "vlm":
         return {"vision_embeds": 0.02 * torch.randn(
-            (1, cfg.vision_tokens, cfg.d_model), generator=g, device=dev)}
+            (batch, cfg.vision_tokens, cfg.d_model), generator=g, device=dev)}
     if cfg.family == "encdec":
         return {"frames": 0.02 * torch.randn(
-            (1, cfg.source_len, cfg.d_model), generator=g, device=dev)}
+            (batch, cfg.source_len, cfg.d_model), generator=g, device=dev)}
     return {}
 
 
@@ -1321,81 +1414,143 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def train_gate(arch, kernel, build, dev, seed):
-    """Phase 9 (a): the kernel path against the plain path at full width,
-    2 layers, float32 weights, batch 1 x 2048: loss and every gradient."""
+def step_launches(cfg) -> dict:
+    """Each kernel's launches in one loss and its gradients of ``cfg``
+    under ``use_flash``.  A kernel inside a layer run under ``remat``
+    launches twice (the forward and the checkpoint's recompute); zamba2's
+    shared block runs outside ``remat`` (``models/hybrid.py``'s
+    ``forward``, as the reference's), so K3 launches once per group there;
+    whisper's encoder attention is non-causal and plain, so K3 runs in its
+    decoder only (``n_layers`` counts the decoder's)."""
+    twice = 2 if cfg.remat in ("full", "dots") else 1
+    if cfg.family == "ssm":
+        return {"ssd_intra_chunk": twice * cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {"ssd_intra_chunk": twice * cfg.n_layers,
+                "flash_attention": cfg.n_layers // cfg.attn_every}
+    return {"flash_attention": twice * cfg.n_layers}
+
+
+def train_config(arch, n_layers=None, **over):
     from repro_torch.configs import get_config
-    from repro_torch.models.registry import get_family
+
+    cfg = get_config(arch)
+    return cfg.replace(n_layers=n_layers or cfg.n_layers, **over)
+
+
+def train_batches(cfg, seq, batch, n, dev, seed):
+    """``n`` batches of ``SyntheticCorpus(seed)`` on the card, each with the
+    family's stub input (``stub_inputs``) drawn from the seed and the step."""
     from repro_torch.train import DataConfig, SyntheticCorpus
 
-    base = get_config(arch).replace(n_layers=GATE_LAYERS, dtype="float32")
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                        global_batch=batch, seed=seed))
+    out = []
+    for i in range(n):
+        b = {k: torch.as_tensor(v).to(dev) for k, v in corpus.batch(i).items()}
+        b.update(stub_inputs(cfg, dev, seed + 10 * i, batch))
+        out.append(b)
+    return out
+
+
+def train_gate(arch, n_layers, seq, build, dev, seed):
+    """Phase 9 (a): the kernel path against the plain path at full width
+    and ``n_layers`` layers on float32 weights, one sequence of ``seq``
+    tokens: the loss and every parameter's gradient, and each kernel's
+    launches on the kernel path against ``step_launches``."""
+    from repro_torch.models.registry import get_family
+
+    base = train_config(arch, n_layers, dtype="float32")
     fam = get_family(base)
     model = fam.init(base, torch.Generator(device=dev).manual_seed(seed), dev)
-    host = SyntheticCorpus(DataConfig(vocab=base.vocab, seq_len=TRAIN_SEQ,
-                                      global_batch=GATE_BATCH, seed=seed)).batch(0)
-    batch = {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+    (batch,) = train_batches(base, seq, GATE_BATCH, 1, dev, seed)
     names, params = zip(*model.named_parameters())
-    out, launched = {}, 0
+    out, launched = {}, {}
     for use_flash in (True, False):
-        before = build.launch_counts([kernel])[kernel]
+        before = build.launch_counts()
+        t0 = time.perf_counter()
         loss = fam.loss_fn(model, base.replace(use_flash=use_flash), batch)
         grads = torch.autograd.grad(loss, params)
         torch.cuda.synchronize()
-        launched += build.launch_counts([kernel])[kernel] - before
+        out[f"s_{use_flash}"] = time.perf_counter() - t0
+        launched[use_flash] = launches_since(build, before)
         out[use_flash] = (loss.detach(), grads)
     (lk, gk), (lp, gp) = out[True], out[False]
     loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
     errs = {n: rel_l2(a, b) for n, a, b in zip(names, gk, gp)}
     worst = max(errs, key=errs.get)
     finite = all(bool(torch.isfinite(g).all()) for g in (*gk, *gp))
-    row = {"loss_kernel": float(lk), "loss_plain": float(lp), "loss_rel": loss_rel,
+    want = step_launches(base)
+    row = {"layers": n_layers, "batch": GATE_BATCH, "seq": seq,
+           "loss_kernel": float(lk), "loss_plain": float(lp), "loss_rel": loss_rel,
            "grad_rel_l2_max": errs[worst], "grad_rel_l2_worst_param": worst,
-           "grads_finite": finite, "gate_launches": launched,
+           "grads_finite": finite, "gate_launches": launched[True],
+           "gate_launches_expected": want, "kernel_s": out["s_True"],
+           "plain_s": out["s_False"],
            "limits": {"loss": LOSS_LIMIT, "grad": GRAD_LIMIT}}
     problems = []
     if not (finite and loss_rel <= LOSS_LIMIT and errs[worst] <= GRAD_LIMIT):
-        problems.append(f"{arch}: kernel vs plain path at {GATE_LAYERS} layers "
-                        f"in float32: {row}")
-    if launched != 2 * GATE_LAYERS:   # the forward and remat's recompute
-        problems.append(f"{arch}: the gate's kernel path launched {kernel} "
-                        f"{launched} times, expected {2 * GATE_LAYERS}")
+        problems.append(f"{arch}: kernel vs plain path at {n_layers} layers, "
+                        f"{seq} tokens, in float32: {row}")
+    if launched[True] != want or launched[False]:
+        problems.append(f"{arch}: the gate launched {launched[True]} on the "
+                        f"kernel path and {launched[False]} on the plain one, "
+                        f"expected {want} and none")
     del model, out, gk, gp, grads
     gc.collect()
     torch.cuda.empty_cache()
-    return row, problems
+    return row, launched[True], problems
 
 
-def train_model(arch, kernel, build, ref, dev, seed):
-    """Phase 9 (b): full width and depth, bf16, remat full, use_flash: 4
-    steps of make_train_step, then a fifth under the profiler."""
-    from repro_torch.configs import get_config
-    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticCorpus,
-                                   init_state, make_train_step)
+def count_plain_calls(ref):
+    """Count calls of K3's and K4's plain versions until the returned
+    ``restore()``: on the training path they must not run where the
+    kernel runs.  ``attend`` sends non-causal attention (whisper's encoder
+    and cross-attention, as the reference does) to K3's plain version by
+    design: those calls are counted apart, as ``flash_attention_ref
+    non-causal``."""
+    calls = {"flash_attention_ref": 0, "ssd_intra_chunk_ref": 0}
+    originals = {n: getattr(ref, n) for n in calls}
+
+    def counting(n):
+        def fn(*a, **kw):
+            key = n
+            if n == "flash_attention_ref" and not kw.get(
+                    "causal", a[3] if len(a) > 3 else True):
+                key = f"{n} non-causal"
+            calls[key] = calls.get(key, 0) + 1
+            return originals[n](*a, **kw)
+        return fn
+
+    for n in originals:
+        setattr(ref, n, counting(n))
+
+    def restore():
+        for n, f in originals.items():
+            setattr(ref, n, f)
+
+    return calls, restore
+
+
+def train_model(arch, n_layers, seq, build, ref, dev, seed):
+    """Phase 9 (b): full width, ``n_layers`` layers (None: the config's),
+    bf16, remat and moments as configured, use_flash: 4 steps of
+    make_train_step, then a fifth under the profiler."""
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
     from repro_torch.train.optim import adamw_update
 
-    cfg = get_config(arch).replace(use_flash=True)
-    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+    cfg = train_config(arch, n_layers, use_flash=True)
+    ocfg = AdamWConfig(lr=TRAIN_LR.get(arch, TRAIN_LR_DEFAULT), warmup_steps=1,
+                       total_steps=TRAIN_STEPS, state_dtype=cfg.opt_state_dtype)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     state = init_state(torch.Generator(device=dev).manual_seed(seed), cfg, ocfg, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     step = make_train_step(cfg, ocfg)
-    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                        global_batch=TRAIN_BATCH, seed=seed))
-    batches = [corpus.batch(i) for i in range(TRAIN_STEPS + 1)]
+    batches = train_batches(cfg, seq, TRAIN_BATCH, TRAIN_STEPS + 1, dev, seed)
 
-    plain_calls = {"flash_attention_ref": 0, "ssd_intra_chunk_ref": 0}
-    originals = {n: getattr(ref, n) for n in plain_calls}
-
-    def counting(n):
-        def fn(*a, **kw):
-            plain_calls[n] += 1
-            return originals[n](*a, **kw)
-        return fn
-
-    for n in plain_calls:
-        setattr(ref, n, counting(n))
+    plain_calls, restore = count_plain_calls(ref)
     losses, gnorms, step_s = [], [], []
     try:
         build.reset_launch_counts()
@@ -1408,8 +1563,7 @@ def train_model(arch, kernel, build, ref, dev, seed):
             step_s.append(time.perf_counter() - t0)
         launches = build.launch_counts()
     finally:
-        for n, f in originals.items():
-            setattr(ref, n, f)
+        restore()
     peak_mem = torch.cuda.max_memory_allocated(dev)
     steady = statistics.mean(step_s[1:])
     state, prof = profiled_step(step, state, batches[TRAIN_STEPS], steady)
@@ -1424,43 +1578,288 @@ def train_model(arch, kernel, build, ref, dev, seed):
     optimizer_s = time.perf_counter() - t0
     del zeros
     n_params = sum(p.numel() for p in model.parameters())
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    want = TRAIN_STEPS * 2 * cfg.n_layers
+    tokens = TRAIN_BATCH * seq
+    want = {k: TRAIN_STEPS * n for k, n in step_launches(cfg).items()}
+    got = {k: n for k, n in launches.items() if n}
     problems = []
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         problems.append(f"{arch}: losses {losses}: not all finite, or the "
                         f"{TRAIN_STEPS}th not below the first")
-    if launches.get(kernel, 0) != want:
-        problems.append(f"{arch}: {kernel} launched {launches.get(kernel, 0)} "
-                        f"times in {TRAIN_STEPS} steps, expected {want} "
-                        f"(2 per layer per step: forward and recompute)")
-    others = {k: n for k, n in launches.items() if k != kernel and n}
-    if others or any(plain_calls.values()):
-        problems.append(f"{arch}: other kernels {others} or plain versions "
-                        f"{plain_calls} ran on the training path")
-    row = {"phase": "train", "arch": arch, "dtype": cfg.dtype, "remat": cfg.remat,
-           "use_flash": True, "params": n_params,
+    if got != want:
+        problems.append(f"{arch}: kernels launched {got} in {TRAIN_STEPS} "
+                        f"steps, expected {want} (step_launches)")
+    if plain_calls["flash_attention_ref"] or plain_calls["ssd_intra_chunk_ref"]:
+        problems.append(f"{arch}: plain versions {plain_calls} ran on the "
+                        f"training path")
+    if peak_mem >= CARD_BYTES:
+        problems.append(f"{arch}: peak memory {peak_mem} bytes")
+    row = {"phase": "train", "arch": arch, "family": cfg.family,
+           "dtype": cfg.dtype, "remat": cfg.remat, "use_flash": True,
+           "layers": cfg.n_layers, "layers_of_config": train_config(arch).n_layers,
+           "params": n_params,
            "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+           "moment_dtype": ocfg.state_dtype,
            "moment_bytes": sum(t.numel() * t.element_size()
                                for t in (*state.opt.m.values(), *state.opt.v.values())),
-           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "batch": TRAIN_BATCH, "seq": seq, "steps": TRAIN_STEPS,
+           "stub": sorted(k for k in batches[0] if k not in ("tokens", "labels")),
            "lr": ocfg.lr, "init_s": init_s, "losses": losses, "grad_norms": gnorms,
            "step_s": step_s, "s_per_step": steady, "tokens_per_s": tokens / steady,
            "first_step_s": step_s[0], "optimizer_s": optimizer_s,
-           "launches": launches,
-           "launches_expected": want, "plain_calls": plain_calls,
+           "launches": got, "launches_expected": want, "plain_calls": plain_calls,
            "max_memory_allocated": peak_mem, **prof}
-    del state, model
+    del state, model, batches
     gc.collect()
     torch.cuda.empty_cache()
-    return row, launches, problems
+    return row, got, problems
+
+
+def _leaf_diffs(params, want, atol, rtol):
+    """``params`` (name -> tensor on the card) against ``want`` (name ->
+    host tensor): the largest absolute difference, the largest share of
+    ``atol + rtol |want|``, the elements beyond it, and ``want``'s global
+    norm."""
+    worst = share = 0.0
+    over, sq = 0, 0.0
+    for n, p in params.items():
+        w = want[n].to(p.device).float()
+        d = (p.float() - w).abs()
+        lim = atol + rtol * w.abs()
+        worst = max(worst, d.max().item())
+        share = max(share, (d / lim).max().item())
+        over += int((d > lim).sum())
+        sq += float(torch.sum(w.double() ** 2))
+    return {"param_max_abs_diff": worst, "param_share_of_tol": share,
+            "param_elements_over_tol": over, "norm_of_compared": sq ** 0.5}
+
+
+def variant_steps(cfg, seq, variants, build, dev, seed):
+    """One plain step and then one step of each of ``variants``
+    (``make_train_step``'s keywords), each from the seed's initial state
+    on the first batch the plain steps take: per run the loss, seconds,
+    peak memory and launches, and its parameters and loss against the run
+    before it (accumulation against the plain step, compression against
+    accumulation)."""
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    ocfg = AdamWConfig(lr=TRAIN_LR_DEFAULT, warmup_steps=1,
+                       total_steps=TRAIN_STEPS, state_dtype=cfg.opt_state_dtype)
+    (batch,) = train_batches(cfg, seq, TRAIN_BATCH, 1, dev, seed)
+    rows, prev = [], None
+    for kw in ({},) + tuple(variants):
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = init_state(torch.Generator(device=dev).manual_seed(seed), cfg,
+                           ocfg, dev)
+        step = make_train_step(cfg, ocfg, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = build.launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        row = {"accum_steps": kw.get("accum_steps", 1),
+               "compress_grads": kw.get("compress_grads", False),
+               "loss": loss, "s": time.perf_counter() - t0,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+               "launches": launches_since(build, before)}
+        params = {n: p.detach() for n, p in state.params.named_parameters()}
+        if prev is not None:
+            row["loss_rel"] = abs(loss - prev[0]) / abs(prev[0])
+            row.update(_leaf_diffs(params, prev[1], *ACCUM_TOL))
+        prev = (loss, {n: p.cpu() for n, p in params.items()})
+        rows.append(row)
+        del state, step, params, m
+    del prev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def accum_runs(arch, gate_layers, seq, build, dev, seed):
+    """Phase 9 (d): ``TRAIN_ACCUM[arch]`` after a plain step, (1) in
+    float32 at full width and the gate's depth, held to the tolerances of
+    ``tests/test_train.py`` (accumulation: the loss within 1e-4 relative
+    and every parameter within 5e-4 + 5e-3 |p| of the plain step's;
+    compression: every parameter within 0.05 x max(global norm, 1) of
+    accumulation's), and (2) in bf16 at full width and depth, recorded:
+    seconds, peak memory, and the same differences.  In bf16 AdamW's first
+    step moves each weight by about lr times the sign of its gradient, and
+    that sign differs between a bf16 full-batch gradient and the float32
+    sum of two bf16 microbatch gradients wherever they nearly cancel, so
+    there the elementwise tolerance holds nothing; launches, finite losses
+    and the memory are gated."""
+    variants = TRAIN_ACCUM[arch]
+    gate_cfg = train_config(arch, gate_layers, dtype="float32", use_flash=True)
+    full_cfg = train_config(arch, use_flash=True)
+    gate = variant_steps(gate_cfg, seq, variants, build, dev, seed)
+    full = variant_steps(full_cfg, seq, variants, build, dev, seed)
+    problems = []
+    launched = {}
+    for what, rows, cfg in (("float32 gate", gate, gate_cfg),
+                            ("bf16", full, full_cfg)):
+        per = step_launches(cfg)
+        for r in rows:
+            want = {k: r["accum_steps"] * n for k, n in per.items()}
+            if r["launches"] != want or not np.isfinite(r["loss"]) or \
+                    r["max_memory_allocated"] >= CARD_BYTES:
+                problems.append(f"{arch} {what} {r}: expected launches {want}, "
+                                f"a finite loss and memory below the card's")
+            for k, n in kernel_keys(r["launches"], cfg.dtype).items():
+                launched[k] = launched.get(k, 0) + n
+    for r in gate[1:]:
+        if r["compress_grads"]:
+            ok = r["param_max_abs_diff"] < COMPRESS_SHARE * max(r["norm_of_compared"], 1.0)
+        else:
+            ok = r["loss_rel"] <= ACCUM_LOSS_RTOL and r["param_share_of_tol"] <= 1
+        if not ok:
+            problems.append(f"{arch}: the float32 {'compressed' if r['compress_grads'] else 'accumulated'} "
+                            f"step is beyond its tolerance: {r}")
+    row = {"phase": "train_accum", "arch": arch, "batch": TRAIN_BATCH, "seq": seq,
+           "gate_layers": gate_layers, "float32_gate": gate,
+           "bf16_layers": full_cfg.n_layers, "bf16": full,
+           "tolerances": {"accum_loss_rtol": ACCUM_LOSS_RTOL,
+                          "accum_params_atol_rtol": ACCUM_TOL,
+                          "compress_share_of_norm": COMPRESS_SHARE}}
+    return row, launched, problems
+
+
+def _host_leaves(tree):
+    """(path, host array, bfloat16 tag) of each leaf, flattened as the
+    checkpoint container flattens a tree."""
+    from repro_torch.train.checkpoint import _flatten_with_paths, _host_leaf
+
+    return [(p, *_host_leaf(x)) for p, x in _flatten_with_paths(tree)]
+
+
+def _same_tree(a, b) -> bool:
+    """The same paths, dtypes, shapes and bytes, leaf by leaf."""
+    la, lb = _host_leaves(a), _host_leaves(b)
+    return len(la) == len(lb) and all(
+        pa == pb and ta == tb and x.dtype == y.dtype and x.shape == y.shape
+        and np.array_equal(np.ascontiguousarray(x).view(np.uint8),
+                           np.ascontiguousarray(y).view(np.uint8))
+        for (pa, x, ta), (pb, y, tb) in zip(la, lb))
+
+
+def resume_runs(dev):
+    """Phase 9 (e): ``launch.train``'s checkpoints on the card, RESUME_ARGS
+    (llama3.2-3b at full width, 2 layers, 4 steps of 2 x 2048).  (A) runs
+    uninterrupted, with no checkpoint directory; (B) runs with a checkpoint
+    every 2 steps and is stopped after step 2 as a preempted job is (its
+    step 3 raises; the checkpoint of step 2 lands); (C) runs on (B)'s
+    directory, resumes at step 2 and saves once at its end.  Each
+    checkpoint of this model is about 10 GB (two 128256 x 3072 vocabulary
+    matrices with float32 moments), so (A) writes none: a machine may cap
+    what one run writes to its disk.  Gates: the state (C) restores equals
+    what (B) saved at step 2 bit for bit, and (C)'s losses of steps 3-4
+    equal (A)'s within LOSS_LIMIT.  Every ``train_state_to_reference``
+    copy is timed."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as launch
+
+    to_ref, from_ref = launch.train_state_to_reference, launch.train_state_from_reference
+    make_step, checkpointer = launch.make_train_step, launch.AsyncCheckpointer
+    run, copies, saved, restored, made = ["A"], [], {}, {}, []
+
+    def timed_to_ref(state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = to_ref(state)
+        copies.append({"run": run[0], "s": time.perf_counter() - t0,
+                       "bytes": sum(x.nbytes for _, x, _ in _host_leaves(tree))})
+        if run[0] == "B":
+            saved["B"] = tree
+        return tree
+
+    def checked_from_ref(cfg, host, device=None):
+        t0 = time.perf_counter()
+        state = from_ref(cfg, host, device)
+        torch.cuda.synchronize()
+        restored["s"] = time.perf_counter() - t0
+        restored["equal_to_saved"] = _same_tree(to_ref(state), saved.pop("B"))
+        return state
+
+    class Preempted(Exception):
+        pass
+
+    def preempted_after_two(*a, **kw):
+        fn = make_step(*a, **kw)
+        taken = [0]
+
+        def step(state, batch):
+            if taken[0] == 2:
+                raise Preempted("stopped after step 2")
+            taken[0] += 1
+            return fn(state, batch)
+        return step
+
+    class Kept(checkpointer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    root = tempfile.mkdtemp(prefix="smoke_resume_")
+    ckdir = os.path.join(root, "b")
+    runs = (("A", []), ("B", ["--ckpt-dir", ckdir, "--ckpt-every", "2"]),
+            ("C", ["--ckpt-dir", ckdir]))
+    losses, walls, logs, files = {}, {}, {}, {}
+    launch.train_state_to_reference = timed_to_ref
+    launch.train_state_from_reference = checked_from_ref
+    launch.AsyncCheckpointer = Kept
+    try:
+        for tag, extra in runs:
+            run[0] = tag
+            launch.make_train_step = preempted_after_two if tag == "B" else make_step
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                try:
+                    losses[tag] = launch.main(RESUME_ARGS + extra + ["--device", str(dev)])
+                except Preempted:
+                    for ck in made:
+                        ck.wait()
+            walls[tag] = time.perf_counter() - t0
+            logs[tag] = [l for l in out.getvalue().splitlines()
+                         if l.startswith(("[resume]", "done"))]
+            if os.path.isdir(ckdir):
+                files[tag] = {f: os.path.getsize(os.path.join(ckdir, f))
+                              for f in sorted(os.listdir(ckdir)) if f.endswith(".ckpt")}
+    finally:
+        launch.train_state_to_reference, launch.train_state_from_reference = to_ref, from_ref
+        launch.make_train_step, launch.AsyncCheckpointer = make_step, checkpointer
+        shutil.rmtree(root, ignore_errors=True)
+    a, c = losses["A"], losses.get("C", [])
+    rel = [abs(x - y) / abs(y) for x, y in zip(c, a[2:])]
+    moved = sum(x["bytes"] for x in copies)
+    row = {"phase": "train_resume", "args": RESUME_ARGS,
+           "runs": {t: e for t, e in runs}, "losses": losses,
+           "loss_rel_c_vs_a": rel, "limit": LOSS_LIMIT,
+           "restored_equal_to_saved": restored.get("equal_to_saved"),
+           "restore_s": restored.get("s"), "wall_s": walls, "log": logs,
+           "checkpoint_files": files, "to_reference_copies": copies,
+           "to_reference_gb_per_s": moved / sum(x["s"] for x in copies) / 1e9
+           if copies else None}
+    problems = []
+    if not (len(a) == 4 and len(c) == 2 and restored.get("equal_to_saved")
+            and all(r <= LOSS_LIMIT for r in rel)
+            and "B" not in losses and any("restored step 2" in l for l in logs["C"])):
+        problems.append(f"launch.train's resume: {row}")
+    return row, problems
 
 
 def function_grads(ops, dev):
     """Phase 9 (c): each autograd Function against autograd through the
     plain op on the card, gradients of sum(out^2), float32: the largest
     error over each gradient's tolerance (2e-4 relative, and absolute on
-    the scale of its largest entry)."""
+    the scale of its largest entry), at the shapes in ``FN_CASES``; K3's
+    windowed case also times the Function's forward (the kernel) and its
+    backward (the plain blockwise recompute)."""
     from repro_torch.kernels import ref
     from repro_torch.models.ssm import ssd_chunked
 
@@ -1477,44 +1876,109 @@ def function_grads(ops, dev):
         out = out[0] if isinstance(out, tuple) else out
         return torch.autograd.grad((out ** 2).sum(), xs)
 
-    res = {}
-    q, k, v = fa_inputs(dev, 1, TIME_S, 24, 8, 128, torch.float32, 31)
-    res["flash_attention"] = share(
-        grads(lambda *a: ops.flash_attention(*a, causal=True), (q, k, v)),
-        grads(lambda *a: ref.flash_attention_ref(*a, causal=True), (q, k, v)))
-    gen = torch.Generator(device=dev).manual_seed(32)
-    b, s, h, p, g_, n = 1, TIME_S, 80, 64, 1, 128
-    ins = (torch.randn((b, s, h, p), generator=gen, device=dev),
-           -torch.randn((b, s, h), generator=gen, device=dev).abs() * 0.1,
-           torch.randn((b, s, g_, n), generator=gen, device=dev),
-           torch.randn((b, s, g_, n), generator=gen, device=dev))
-    res["ssd_intra_chunk"] = share(
-        grads(lambda *a: ops.ssd_chunked_kernel(*a, chunk=256), ins),
-        grads(lambda *a: ssd_chunked(*a, chunk=256), ins))
+    res, times = {}, {}
+    for label, (b, s, h, kv, d, window) in FN_CASES["flash_attention"].items():
+        q, k, v = fa_inputs(dev, b, s, h, kv, d, torch.float32, 31)
+        fn = lambda *a, w=window: ops.flash_attention(*a, causal=True, window=w)  # noqa: E731
+        res[label] = share(
+            grads(fn, (q, k, v)),
+            grads(lambda *a, w=window: ref.flash_attention_ref(
+                *a, causal=True, window=w), (q, k, v)))
+        if window:
+            xs = [t.clone().requires_grad_() for t in (q, k, v)]
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            e[0].record()
+            out = fn(*xs)
+            e[1].record()
+            torch.autograd.grad((out ** 2).sum(), xs)
+            e[2].record()
+            e[2].synchronize()
+            times[label] = {"forward_kernel_ms": e[0].elapsed_time(e[1]),
+                            "backward_recompute_ms": e[1].elapsed_time(e[2])}
+            del xs, out
+        del q, k, v
+    for label, (b, s, h, p, g_, n, chunk) in FN_CASES["ssd_intra_chunk"].items():
+        gen = torch.Generator(device=dev).manual_seed(32)
+        ins = (torch.randn((b, s, h, p), generator=gen, device=dev),
+               -torch.randn((b, s, h), generator=gen, device=dev).abs() * 0.1,
+               torch.randn((b, s, g_, n), generator=gen, device=dev),
+               torch.randn((b, s, g_, n), generator=gen, device=dev))
+        res[label] = share(
+            grads(lambda *a, c=chunk: ops.ssd_chunked_kernel(*a, chunk=c), ins),
+            grads(lambda *a, c=chunk: ssd_chunked(*a, chunk=c), ins))
     torch.cuda.synchronize()
     bad = {k: v for k, v in res.items() if not v <= 1.0}
     if bad:
         raise RuntimeError(f"autograd Function gradients differ from the plain "
                            f"op's beyond {FN_GRAD_TOL}: {bad} (share of limit)")
     return {"share_of_limit": res, "tolerance": FN_GRAD_TOL,
-            "shapes": {"flash_attention": "q (1, 2048, 24, 128), k/v (1, 2048, 8, 128) f32",
-                       "ssd_intra_chunk": "x (1, 2048, 80, 64), B/C (1, 2048, 1, 128), chunk 256, f32"}}
+            "windowed_times": times,
+            "shapes": {"flash_attention": {k: f"(B, S, H, KV, D, window) {v}, f32"
+                                           for k, v in FN_CASES["flash_attention"].items()},
+                       "ssd_intra_chunk": {k: f"(B, S, H, P, G, N, chunk) {v}, f32"
+                                           for k, v in FN_CASES["ssd_intra_chunk"].items()}}}
+
+
+def kernel_keys(launched, dtype):
+    """``launched`` keyed as the per-kernel line's entries: K3 in float32
+    is ``flash_attention:float32``."""
+    return {(f"{k}:float32" if k == "flash_attention" and dtype == "float32"
+             else k): n for k, n in launched.items()}
 
 
 def train_phase(build, ops, ref, dev, seed):
-    """Phase 9: for each model the gate, the 4 steps and their line; then
-    the Functions' gradients.  Returns each kernel's launches on its
-    model's training steps."""
+    """Phase 9: for each model the gate(s), the 4 steps and their line,
+    then the accumulation runs, the checkpoint resume and the Functions'
+    gradients.  Returns each kernel's launches by part:
+    {part: {kernel key (``kernel_keys``): {arch: n}}}."""
     t_phase = time.perf_counter()
-    launches = {}
-    for arch, kernel in TRAIN_ARCHS:
-        gate, problems = train_gate(arch, kernel, build, dev, seed)
-        row, got, more = train_model(arch, kernel, build, ref, dev, seed)
+    launches = {"steps": {}, "gates": {}, "accum": {}, "resume": {}}
+
+    def add(part, arch, got, dtype):
+        for k, n in kernel_keys(got, dtype).items():
+            by_arch = launches[part].setdefault(k, {})
+            by_arch[arch] = by_arch.get(arch, 0) + n
+
+    for arch, n_layers, gate_layers, seq in TRAIN_ARCHS:
+        t_arch = time.perf_counter()
+        gate, got, problems = train_gate(arch, gate_layers, seq, build, dev, seed)
+        add("gates", arch, got, "float32")
+        window = None
+        if arch == TRAIN_WINDOW_GATE[0]:
+            window, got, more = train_gate(arch, *TRAIN_WINDOW_GATE[1:], build,
+                                           dev, seed)
+            add("gates", arch, got, "float32")
+            problems += more
+        row, got, more = train_model(arch, n_layers, seq, build, ref, dev, seed)
+        add("steps", arch, got, row["dtype"])
         row["gate"] = gate
+        if window is not None:
+            row["window_gate"] = window
+        row["arch_s"] = time.perf_counter() - t_arch
         emit(row)
         if problems + more:
             raise RuntimeError("; ".join(problems + more))
-        launches[kernel] = {arch: got.get(kernel, 0)}
+    for arch, _, gate_layers, seq in TRAIN_ARCHS:
+        if arch not in TRAIN_ACCUM:
+            continue
+        t0 = time.perf_counter()
+        row, got, problems = accum_runs(arch, gate_layers, seq, build, dev, seed)
+        for k, n in got.items():
+            launches["accum"].setdefault(k, {})[arch] = n
+        row["phase_s"] = time.perf_counter() - t0
+        emit(row)
+        if problems:
+            raise RuntimeError("; ".join(problems))
+    t0 = time.perf_counter()
+    before = build.launch_counts()
+    row, problems = resume_runs(dev)
+    row["launches"] = launches_since(build, before)
+    row["phase_s"] = time.perf_counter() - t0
+    add("resume", RESUME_ARGS[1], row["launches"], "bfloat16")
+    emit(row)
+    if problems:
+        raise RuntimeError("; ".join(problems))
     emit({"phase": "train_functions", **function_grads(ops, dev),
           "phase_s": time.perf_counter() - t_phase})
     return launches
@@ -2159,6 +2623,57 @@ def dryrun_phase(build, dev, seed):
     return launches
 
 
+# --------------------------------------------------------------- phase 16
+def insitu_phase(build, dev):
+    """Phase 16: ``examples/torch_train_insitu_eval.py``'s ``run`` on the
+    card with ``--preset 100m`` (K3 under autograd in the trainer, K3's
+    forward in the evaluator).  Gates: the evaluator scored at least one
+    snapshot, every scored snapshot's tensors equal bit for bit the copy
+    the trainer took when it wrote them, the held-out loss did not diverge
+    (the example's own check), and the report's dropped count equals the
+    snapshots written less those scored."""
+    mod = example("torch_train_insitu_eval")
+    lines = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = build.launch_counts()
+    t0 = time.perf_counter()
+    report, evals, snaps = mod.run(INSITU_PRESET, device=str(dev), log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = kernel_keys(launches_since(build, before),
+                           mod.PRESETS[INSITU_PRESET].dtype)
+    written, scored = len(snaps["written"]), len(evals)
+    row = {"phase": "insitu", "preset": INSITU_PRESET, "steps": snaps["steps"],
+           "wall_s": wall, "train_s": snaps["train_s"],
+           "steps_per_s": snaps["steps"] / snaps["train_s"],
+           "written": written, "scored": scored,
+           "dropped": report.total_dropped, "served": report.total_served,
+           "bytes_moved": report.total_bytes_moved,
+           "scored_steps": [s for s, _ in evals],
+           "held_out_first_last": [evals[0][1], evals[-1][1]] if evals else None,
+           "bits_equal": snaps["equal"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "launches": launched, "model": lines[0] if lines else None}
+    problems = []
+    if not evals:
+        problems.append("the evaluator scored no snapshot")
+    elif not evals[-1][1] < evals[0][1] + 0.5:
+        problems.append(f"held-out loss diverged: {evals}")
+    if not all(snaps["equal"].values()) or len(snaps["equal"]) != scored:
+        problems.append(f"a scored snapshot differs from the trainer's copy: "
+                        f"{snaps['equal']}")
+    if report.total_dropped != written - scored:
+        problems.append(f"dropped {report.total_dropped}, but {written} written "
+                        f"and {scored} scored")
+    if not launched.get("flash_attention:float32"):
+        problems.append(f"K3 never launched in the in situ run: {launched}")
+    row["phase_s"] = time.perf_counter() - t0
+    emit(row)
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2269,6 +2784,7 @@ def main() -> int:
     explore_phase()
     parallel_k3 = parallel_phase(build, dev, args.seed)
     dryrun_launches = dryrun_phase(build, dev, args.seed)
+    insitu_launches = insitu_phase(build, dev)
 
     kernels = time_kernels(pack, ops, ref, dev, rates[0], launches, STEPS, worst)
     for k in kernels:
@@ -2285,11 +2801,14 @@ def main() -> int:
             k["launches_float32_gates"] = {
                 "float32 gates": gate_launches.get(k["name"], {}),
                 "window gate": gate_launches.get(f"{k['name']}:window", {})}
-    for k in kernels:   # training runs K3 in bf16 only
-        on_path = k["name"] == "ssd_intra_chunk" or (
-            k["name"] == "flash_attention" and k["dtype"] == "bfloat16")
-        k["launches_train"] = (train_launches[k["name"]] if on_path
-                               else {arch: 0 for arch, _ in TRAIN_ARCHS})
+    for k in kernels:
+        key = ("flash_attention:float32" if k["name"] == "flash_attention"
+               and k["dtype"] == "float32" else k["name"])
+        # phase 9 by part and arch: the bf16 steps, the float32 gates, the
+        # accumulation runs, launch.train's resume; phase 16's in situ run
+        k["launches_train"] = {part: by_key.get(key, {})
+                               for part, by_key in train_launches.items()}
+        k["launches_insitu"] = insitu_launches.get(key, 0)
         # phase 14 (b): phi3.5-moe's float32 forward through the EP schedule
         k["launches_parallel"] = (parallel_k3 if k["name"] == "flash_attention"
                                   and k["dtype"] == "float32" else 0)

@@ -26,6 +26,9 @@ address, world size and rank); on the card rank r runs on ``cuda:r``
 modulo the cards present.  A checkpoint gathers every leaf on every rank
 and rank 0 writes it.
 
+``main`` destroys at its end the group it started; a group the caller
+started is left running.
+
 Fault tolerance: the driver always tries ``restore_latest`` first, so a
 killed run resumes from the newest atomic checkpoint with the data
 iterator fast-forwarded to the right step (the corpus is pure in (seed,
@@ -57,6 +60,18 @@ from .mesh import make_host_mesh, make_production_mesh
 
 
 def main(argv=None) -> List[float]:
+    owned = not dist.is_initialized()
+    try:
+        return _train(argv)
+    finally:
+        # the world-size-1 group ``make_host_mesh`` starts when none is
+        # running belongs to this run: a later mesh or dry run in the same
+        # process must not find it
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(argv) -> List[float]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ARCH_IDS), required=True)
     ap.add_argument("--reduced", action="store_true",

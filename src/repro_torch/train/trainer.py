@@ -10,7 +10,7 @@ state would not fit on the card), returning the same objects in a new
 
 Microbatch gradient accumulation (``accum_steps``) runs the microbatches
 one after another and updates the weights once per global batch, the
-accumulator in the optimizer-state dtype.  Optional int8 gradient
+accumulator in the optimizer-state dtype, added to and divided in place.  Optional int8 gradient
 compression (``compress_grads``): each microbatch's gradient is quantized
 per leaf (symmetric, absmax scale) before it enters the accumulator, with
 an error-feedback residual folded into the next microbatch, as in the
@@ -146,7 +146,7 @@ def _accumulate_compressed(gsum, err, grads, acc_dt) -> None:
         absmax = torch.max(torch.stack([f.abs().max() for f in full.values()]))
         for n, f in full.items():
             deq = _dequantize(*_quantize(f, absmax))
-            gsum[n] = gsum[n] + deq.to(acc_dt)
+            gsum[n].add_(deq.to(acc_dt))
             err[n] = f - deq
 
 
@@ -215,11 +215,15 @@ def make_train_step(
                 with torch.no_grad():
                     if err is None:
                         for n, gg in g.items():
-                            gsum[n] = gsum[n] + gg.to(acc_dt)
+                            gsum[n].add_(gg.to(acc_dt))
                     else:
                         _accumulate_compressed(gsum, err, g, acc_dt)
                 del g
-            grads = {n: a / accum_steps for n, a in gsum.items()}
+            # in place, and the error buffer freed: at full width each is a
+            # float32 copy of the parameters, and the update still needs the
+            # moments' room
+            err = None
+            grads = {n: a.div_(accum_steps) for n, a in gsum.items()}
             loss = torch.mean(torch.stack(losses))
 
         # the reference's ZeRO hint: gradients to the parameter layout

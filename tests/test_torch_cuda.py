@@ -411,6 +411,8 @@ def _grad_close(got, want):
 @pytest.mark.parametrize("b,s,h,kv,d,window", [
     (1, 2048, 24, 8, 128, 0),     # the serving and training shape
     (2, 333, 8, 1, 64, 100),      # MQA, window, ragged
+    (1, 6144, 32, 32, 80, 4096),  # zamba2's window gate: past its window
+    (2, 1000, 32, 8, 80, 256),    # GQA with a window, ragged
 ])
 def test_flash_attention_function_grads_match_plain(cuda, b, s, h, kv, d, window):
     """K3 under autograd on the card: the forward launches the kernel once,
@@ -451,6 +453,51 @@ def test_ssd_function_grads_match_plain(cuda, with_state):
     y_ref, _ = ssd_chunked(*r[:4], chunk=256,
                            initial_state=r[4] if with_state else None)
     _grad_close(got, torch.autograd.grad((y_ref ** 2).sum(), r))
+
+
+def test_ssd_function_grads_match_plain_at_zamba2s_shape(cuda):
+    """The scan around K4 under autograd at zamba2's SSD shape (80 heads of
+    64, one group, N = 64): one launch, gradients within 2e-4."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    ins = list(_ssd_inputs(cuda, 2, 2048, 80, 64, 1, 64, 11)[:4])
+    a = [t.clone().requires_grad_() for t in ins]
+    r = [t.clone().requires_grad_() for t in ins]
+    build.reset_launch_counts(["ssd_intra_chunk"])
+    y, _ = ops.ssd_chunked_kernel(*a, chunk=256)
+    got = torch.autograd.grad((y ** 2).sum(), a)
+    torch.cuda.synchronize()
+    assert build.launch_counts(["ssd_intra_chunk"])["ssd_intra_chunk"] == 1
+    y_ref, _ = ssd_chunked(*r, chunk=256)
+    _grad_close(got, torch.autograd.grad((y_ref ** 2).sum(), r))
+
+
+def test_hybrid_train_step_on_the_card_counts_its_launches(cuda):
+    """zamba2 at 6 narrow layers (one shared-block group), bf16,
+    ``remat="full"``: K4 launches twice a layer (the forward and the
+    checkpoint's recompute), K3 once (the shared block runs outside
+    ``remat``), and the loss falls over 4 steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticCorpus,
+                                   init_state, make_train_step)
+
+    cfg = get_config("zamba2-2.7b").replace(
+        n_layers=6, vocab=1024, d_model=256, n_heads=4, n_kv_heads=4,
+        d_ff=512, use_flash=True)
+    assert cfg.remat == "full" and cfg.dtype == "bfloat16" and cfg.attn_every == 6
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    state = init_state(torch.Generator(device=cuda).manual_seed(0), cfg, ocfg, cuda)
+    step = make_train_step(cfg, ocfg)
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                        global_batch=2))
+    losses = []
+    for i in range(4):
+        build.reset_launch_counts()
+        state, m = step(state, corpus.batch(i))
+        losses.append(float(m["loss"]))
+        assert build.launch_counts(["flash_attention", "ssd_intra_chunk"]) == \
+            {"flash_attention": 1, "ssd_intra_chunk": 12}
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-2.7b"])

@@ -11,6 +11,10 @@ JAX package, and the conversions that carry every family between the two.
   (2e-4, elementwise and relative L2 per leaf), so weight decay and the
   global norm follow the reference's ``enc``/``dec`` stacks and its
   unstacked ``shared`` block.
+* Three steps with ``accum_steps=2``, with and without ``compress_grads``,
+  for zamba2, whisper, phi3.5-moe and internvl2: the same quantities at
+  the same tolerances, as ``tests/test_torch_train.py`` holds the dense and
+  ssm families (with compression, elementwise only).
 * ``params_to_reference(params_from_reference(tree)) == tree`` bit for bit
   for every arch in bfloat16, and ``train_state_to_reference`` inverting
   ``train_state_from_reference`` for whisper (``enc.``/``dec.``) and
@@ -120,6 +124,68 @@ def test_train_step_matches_jax(arch, use_flash):
                        ("m", got.opt.m, js.opt.m), ("v", got.opt.v, js.opt.v)):
         _close_tree(g, w, name, rel_l2=True)
     assert int(got.opt.step) == int(js.opt.step) == 1
+
+
+ACCUM_ARCHS = ["zamba2-2.7b", "whisper-base", "phi3.5-moe-42b-a6.6b",
+               "internvl2-76b"]
+
+
+def _assert_state_close(ts, js, what, flips=None):
+    """Every parameter and moment within ``STEP_TOL`` elementwise and per
+    leaf in relative L2; the same step count.  ``flips`` (compression):
+    instead, a leaf may hold at most ``flips[0]`` of its elements beyond
+    ``STEP_TOL``, none further off than ``flips[1]``."""
+    got = convert.train_state_to_reference(ts)
+    for name, g, w in (("params", got.params, js.params),
+                       ("m", got.opt.m, js.opt.m), ("v", got.opt.v, js.opt.v)):
+        for (path, want), leaf in zip(jax.tree_util.tree_flatten_with_path(w)[0],
+                                      jax.tree.leaves(g)):
+            err = f"{what} {name}{jax.tree_util.keystr(path)}"
+            a, b = leaf.float().numpy(), np.asarray(want, np.float32)
+            if flips is None:
+                np.testing.assert_allclose(a, b, rtol=STEP_TOL, atol=STEP_TOL,
+                                           err_msg=err)
+                assert _rel(a, b) <= STEP_TOL, err
+                continue
+            off = np.abs(a - b) > STEP_TOL * (1 + np.abs(b))
+            assert off.mean() <= flips[0], (err, int(off.sum()), off.size)
+            assert np.abs(a - b).max() <= flips[1], (err, np.abs(a - b).max())
+    assert int(got.opt.step) == int(js.opt.step)
+
+
+@pytest.mark.parametrize("compress", [False, True], ids=["accum", "accum-int8"])
+@pytest.mark.parametrize("arch", ACCUM_ARCHS)
+def test_accumulated_train_step_matches_jax_over_three_steps(arch, compress):
+    """``accum_steps=2`` (and int8 ``compress_grads``) over three steps
+    from the same state on the same batches (stub inputs included, cut
+    into microbatches with the tokens): loss, ``grad_norm``, ``lr`` and the
+    whole state within ``STEP_TOL`` of the JAX package's step.  With
+    compression a gradient element within float32 noise of an int8
+    rounding boundary may land one level apart in the two packages, and
+    AdamW then moves that weight by up to about ``lr`` more or less a step
+    (``test_torch_train.py`` holds the dense and ssm cases elementwise;
+    here whisper's and zamba2's reduced configs have 1 and 8 such
+    elements in 16384 and 75776): loss, ``grad_norm`` and ``lr`` stay
+    within ``STEP_TOL``, and each leaf of the state within it but for at
+    most 0.1 % of its elements, each within 2 ``lr`` per step taken."""
+    kw = dict(accum_steps=2, compress_grads=compress)
+    over = dict(use_flash=True, loss_chunk=16)
+    jcfg = j_get_config(arch, reduced=True).replace(**over)
+    cfg = get_config(arch, reduced=True).replace(**over)
+    js = jtrain.init_state(jax.random.PRNGKey(0), jcfg, jtrain.AdamWConfig(**OPT))
+    ts = convert.train_state_from_reference(cfg, jax.tree.map(np.asarray, js), CPU)
+    jstep = jax.jit(jtrain.make_train_step(jcfg, jtrain.AdamWConfig(**OPT), **kw))
+    tstep = make_train_step(cfg, AdamWConfig(**OPT), **kw)
+    for i in range(3):
+        host = _batch(cfg, 10 + i, b=4)
+        js, jm = jstep(js, {k: jnp.asarray(v) for k, v in host.items()})
+        ts, tm = tstep(ts, host)
+        for k in ("loss", "grad_norm", "lr"):
+            assert tm[k].dtype == torch.float32
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=STEP_TOL,
+                                       err_msg=f"{k} at step {i}")
+        _assert_state_close(ts, js, f"step {i}", flips=(
+            1e-3, 2 * OPT["lr"] * (i + 1)) if compress else None)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

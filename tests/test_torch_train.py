@@ -389,3 +389,67 @@ def test_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
     assert "step     3 loss" in out
     with pytest.raises(RuntimeError, match="need 256 ranks for the production mesh"):
         launch.main(common + ["--production-mesh"])
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()   # main released the group it started
+
+
+def test_launcher_resumed_run_equals_the_uninterrupted_one(tmp_path, monkeypatch,
+                                                           capsys):
+    """``--accum-steps 2``, a checkpoint every 2 steps: a 4-step run
+    stopped after step 2 as a preempted job is (its third step raises, the
+    checkpoint of step 2 lands) and run again on its directory resumes at
+    step 2 and ends where the uninterrupted run ends: the same losses of
+    steps 3-4 and the same final checkpoint, bit for bit."""
+    from repro_torch.launch import train as launch
+
+    common = ["--arch", "llama3.2-3b", "--reduced", "--device", "cpu",
+              "--global-batch", "4", "--seq-len", "16", "--steps", "4",
+              "--accum-steps", "2", "--ckpt-every", "2", "--log-every", "1"]
+    whole = launch.main(common + ["--ckpt-dir", str(tmp_path / "whole")])
+
+    class Preempted(Exception):
+        pass
+
+    made, make_step = [], launch.make_train_step
+
+    def stopped_after_two(*a, **kw):
+        fn, taken = make_step(*a, **kw), []
+
+        def step(state, batch):
+            if len(taken) == 2:
+                raise Preempted
+            taken.append(1)
+            return fn(state, batch)
+        return step
+
+    class Kept(launch.AsyncCheckpointer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    cut = ["--ckpt-dir", str(tmp_path / "cut")]
+    with monkeypatch.context() as m:
+        m.setattr(launch, "make_train_step", stopped_after_two)
+        m.setattr(launch, "AsyncCheckpointer", Kept)
+        with pytest.raises(Preempted):
+            launch.main(common + cut)
+    for ck in made:
+        ck.wait()
+    assert AsyncCheckpointer(str(tmp_path / "cut")).latest_step() == 2
+    capsys.readouterr()
+    resumed = launch.main(common + cut)
+    assert f"[resume] restored step 2 from {tmp_path / 'cut'}" in capsys.readouterr().out
+    assert len(whole) == 4 and resumed == whole[2:]
+    like = convert.train_state_to_reference(init_state(
+        torch.Generator().manual_seed(0),
+        get_config("llama3.2-3b", reduced=True).replace(use_flash=True),
+        AdamWConfig(), CPU))
+    ends = [restore_latest(str(tmp_path / d), like) for d in ("whole", "cut")]
+    assert ends[0][0] == ends[1][0] == 4
+    bits = lambda x: (convert.numpy_from_tensor(x) if isinstance(x, torch.Tensor)  # noqa: E731
+                      else np.asarray(x)).tobytes()
+    leaves = [jax.tree.leaves(e[1]) for e in ends]
+    assert len(leaves[0]) == len(leaves[1]) > 3
+    for a, b in zip(*leaves):
+        assert bits(a) == bits(b)

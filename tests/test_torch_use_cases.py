@@ -13,7 +13,13 @@ bytes (``torch_twins``).
   1e-4 of the cutoff, so equal counts are not luck.
 * The scheduler: each consumer's slab per snapshot is byte-equal across
   packages, both consumers analyse every snapshot, and reeber's final
-  autotuned prefetch depth lies in [1, 4] in both.
+  autotuned prefetch depth lies in [1, 4] in both.  Its redistribution
+  counters are compared per slab: both edges ask for the same slab of a
+  step, and the second normally takes the first's filtered payload from
+  the fan-out cache (``Channel._prepare``), but when their prefetches run
+  at once both miss it and the step's slab is planned twice.  Both
+  packages do this, as often as the thread timing makes them
+  (``test_scheduler_fanout_cache_race_in_both_packages`` forces it).
 """
 
 import importlib.util
@@ -25,13 +31,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_twins import assert_same, run_both  # noqa: E402
+from torch_twins import (COPY_COUNTERS, assert_same,  # noqa: E402
+                         assert_same_deliveries, run_both)
 
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 
 N = 3                 # ensemble instances
 ATOMS, STEPS, SEED = 64, 5, 12
 GRID, SNAPSHOTS = 32, 12
+# counted once for each slab a channel filters
+REDIST = ("redist_planned_bytes", "redist_shipped_bytes",
+          "redist_baseline_bytes", "redist_aligned", "redist_slabs")
 
 
 def _example(name, argv=()):
@@ -172,10 +182,65 @@ def test_cosmology_scheduler_matches_jax():
         (edge,) = [e for e in depths if "reeber" in e]
         assert 1 <= depths[edge] <= 4
         assert run.report.scheduler["policy"] == "fair"
-    assert_same(t, j)
+    _assert_same_net_of_refilters(t, j)
     for (task, _, _, ts), (dt, shape, raw) in t.side.got.items():
         np.testing.assert_array_equal(
             np.frombuffer(raw, dt).reshape(shape), _field(ts))
+
+
+def _net(run, k):
+    """Counter ``k`` as if every step's slab had been filtered once."""
+    n = run.stats["redist_slabs"]
+    assert run.stats[k] * SNAPSHOTS % n == 0, (k, run.stats[k], n)
+    return run.stats[k] * SNAPSHOTS // n
+
+
+def _assert_same_net_of_refilters(t, j):
+    """Deliveries, report totals and every other counter equal; the
+    redistribution counters equal per slab, with each step's slab filtered
+    once by the first edge and at most once more by the second (a lost
+    fan-out cache race), and no prefetch cancelled; the plan cache's
+    distinct plans equal, and its calls (one per filter) net of the
+    repeats."""
+    assert_same_deliveries(t, j)
+    assert t.report.total_served == j.report.total_served
+    assert t.report.total_bytes_moved == j.report.total_bytes_moved
+    for k in COPY_COUNTERS:
+        if k not in REDIST:
+            assert t.stats[k] == j.stats[k], (k, t.stats[k], j.stats[k])
+    assert t.plans["size"] == j.plans["size"]
+    calls = [r.plans["hits"] + r.plans["misses"] - r.stats["redist_slabs"]
+             for r in (t, j)]
+    assert calls[0] == calls[1], calls
+    for run in (t, j):
+        assert SNAPSHOTS <= run.stats["redist_slabs"] <= 2 * SNAPSHOTS
+        assert run.stats["prefetch_cancelled"] == 0
+        assert _net(run, "redist_planned_bytes") == \
+            _net(run, "redist_shipped_bytes") == SNAPSHOTS * _field(0).nbytes
+    for k in REDIST:
+        assert _net(t, k) == _net(j, k), (k, t.stats[k], j.stats[k])
+
+
+def test_scheduler_fanout_cache_race_in_both_packages(monkeypatch):
+    """A slow filter keeps both edges' preparations of a step running at
+    once: in both packages the second edge misses the fan-out cache and
+    plans the step's slab again, and what reaches each consumer, the
+    reports and the counters net of the repeats stay equal."""
+    import time
+
+    from repro.core import channel as jch
+    from repro_torch.core import channel as tch
+
+    for mod in (jch, tch):
+        def slow(self, f, _filter=mod.Channel.filter_file):
+            time.sleep(0.03)
+            return _filter(self, f)
+        monkeypatch.setattr(mod.Channel, "filter_file", slow)
+    port = _example("torch_cosmology_scheduler")
+    t, j = run_both(_scheduler, port.WORKFLOW)
+    for run in (t, j):
+        assert run.stats["redist_slabs"] > SNAPSHOTS   # the race was lost
+    _assert_same_net_of_refilters(t, j)
 
 
 def test_cosmology_analyses_match_jax():
