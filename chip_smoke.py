@@ -227,7 +227,52 @@ JSON line and any failure exiting non-zero:
    for bit to the copy the trainer took at its write, the held-out loss
    not diverging, the report's dropped count equal to the snapshots
    written less those scored, K3 launched.  Printed: wall time, steps/s,
-   written, scored and dropped snapshots, peak memory.
+   written, scored and dropped snapshots, peak memory;
+17. trace -- phase 3's workflow with the tracing layer on
+   (``Wilkins.run(trace=PATH)``).  Untraced and traced runs alternate, 10
+   of each (``verify=False``, as phase 4), for the wall per timestep and
+   the host garbage collector's seconds in each run; the untraced ones
+   must create no ``SpanRecorder`` (``obs.recorder.created_count()``), and
+   none may be alive after them.  Then one traced run with ``verify=True``: every
+   block equal to the field, K1 and K2 launched exactly as in phase 3
+   (counts set to 0 just before it, read just after), spans covering
+   ``vol``, ``channel`` and ``reshard``, each instance's attribution
+   buckets summing to its window within 1e-9 s, exporting the loaded trace
+   giving the same document, and ``python -m repro_torch.obs report PATH
+   --json`` in a fresh interpreter (``-X importtime``: no JAX and no JAX
+   package imported) giving the attribution of the trace it reads, which
+   is the run's own within the export's 1 ns rounding.  Printed: the walls
+   and their medians' ratio (recorded, not gated), each instance's buckets,
+   the critical instance's per-step buckets, each edge's blocked and prep
+   seconds.  The spans carry host timestamps: a ``reshard`` span holds K1's
+   or K2's launch, not its run on the card;
+18. traced_example -- ``examples/torch_cosmology_traced.py``'s ``run`` at
+   256^3 float64 (a seeded field) and 6 snapshots, crash-free and traced
+   with ``reeber[1]`` crashing at recv step 2: the example's acceptance
+   (one restart; ``vol``, ``channel``, ``prefetch``, ``reshard``,
+   ``checkpoint`` and ``recovery`` spans), halo counts equal to the
+   crash-free run's and to a plain recount, K1 launched once per rank block
+   reeber's ``comm.reshard`` returned;
+19. examples_faults -- the fault-tolerant and elastic examples' ``run`` at
+   256^3 float64 and 8 snapshots: crash-free and faulted (two restarts and
+   viz dropped; a policy rescale 2->1; a stall the watchdog declares at the
+   example's own ``stall_timeout_s: 0.3``), every run's counts equal to a
+   plain recount;
+20. flowcontrol -- ``examples/torch_cosmology_flowcontrol.py``'s ``run`` at
+   256^3 float32, 10 snapshots, ``io_freq: 2``, the paper's action script
+   (Listing 5) written to a temporary ``action_dirs`` entry: served at
+   every second close and only there, 5 served and 5 skipped, reeber
+   analysing the JAX example's snapshots (``FLOW_ANALYSED``), each count
+   equal to a plain recount, every payload nyx's own tensor on the card and
+   no byte copied;
+21. quickstart -- ``examples/torch_quickstart.py``'s ``run`` (Listing 1,
+   N = 1,000,000, 5 timesteps): consumer1's total 10, consumer2 run with
+   data once per timestep (a stateless consumer, relaunched), every
+   received tensor sharing the producer's storage, no byte copied, the
+   particle means equal to a plain recount of the reference's draw.
+   Phases 18-21 print wall times and the kernels' launches; the per-kernel
+   line carries phase 17's as ``launches_trace`` and theirs as
+   ``launches_examples``.
 
 The lines before the last are the whole run's wall time (builds included),
 the per-kernel summary and the card's name and power limit; the last line
@@ -239,12 +284,14 @@ result.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -356,6 +403,14 @@ FN_GRAD_TOL = 2e-4           # each Function vs the plain op (test_kernels.py)
 # phases 10 and 11: the two use cases at the field size of phase 3
 ENS_INSTANCES, ENS_ATOMS, ENS_STEPS = 8, 4096, 10
 SCHED_SNAPSHOTS = 12
+# phase 17: untraced and traced runs of phase 3's workflow, alternated
+TRACE_RUNS = 10
+TRACE_LAYERS = {"vol", "channel", "reshard"}
+# phases 18-21: the five example workflows at phase 3's field size
+TRACED_SNAPSHOTS = 6
+FT_SNAPSHOTS = 8
+FLOW_SNAPSHOTS = 10
+FLOW_ANALYSED = [1, 3, 5, 7, 9]   # io_freq 2: the JAX example's, tests hold it
 # phase 13: the explorer's clean corpus at the CLI's budget (256 schedules)
 # -- [schedules, pruned, steps] per scenario, which the JAX package's
 # explorer gives for its corpus with device payloads adopted in place
@@ -498,7 +553,7 @@ def workflow_doc():
     ]}
 
 
-def workflow(core, dev, seed: int, verify: bool):
+def workflow(core, dev, seed: int, verify: bool, trace=None):
     from repro_torch.core.datamodel import BlockOwnership
     from repro_torch.core.redistribute import even_blocks
 
@@ -546,7 +601,7 @@ def workflow(core, dev, seed: int, verify: bool):
     w = core.Wilkins(cfg, {"nyx": nyx, "reeber": consumer, "viz": consumer},
                      devices=[dev])
     t0 = time.perf_counter()
-    report = w.run(timeout=600)
+    report = w.run(timeout=600, trace=trace)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return report, calls, failures, wall
@@ -1170,9 +1225,9 @@ def evolve(rho, t):
     return torch.clamp(rho + 0.1 * lap + 0.01 * torch.sin(t + rho), min=0.0)
 
 
-def initial_density(dev, seed):
+def initial_density(dev, seed, dtype=torch.float32):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return 1.0 + 0.05 * torch.randn(SHAPE, generator=g, device=dev)
+    return 1.0 + 0.05 * torch.randn(SHAPE, generator=g, device=dev, dtype=dtype)
 
 
 def plain_recount(dev, seed):
@@ -1287,7 +1342,6 @@ def faults_phase(core, build, dev, seed):
     """Phase 8: the four runs and their gates; returns K1/K2's launches per
     run and the phase's summary line."""
     import shutil
-    import tempfile
 
     t_phase = time.perf_counter()
     plain = plain_recount(dev, seed)
@@ -1759,7 +1813,6 @@ def resume_runs(dev):
     import contextlib
     import io
     import shutil
-    import tempfile
 
     from repro_torch.launch import train as launch
 
@@ -2054,8 +2107,6 @@ def ensemble_phase(dev, seed):
 def scheduler_phase(dev, seed):
     """Phase 11: the fair-scheduled cosmology workflow at 256^3, each
     analysis held to a plain recount of the same field on the card."""
-    import tempfile
-
     from repro_torch.core.datamodel import reset_transport_stats, transport_stats
     from repro_torch.core.redistribute import plan_cache, reset_plan_cache
 
@@ -2162,8 +2213,6 @@ def analysis_phase(docs, plans):
     documents of phases 3, 8, 10 and 11, ``lint`` on the port's core, and
     ``plancheck.verify_plan`` over the plans K1/K2 ran, each in a fresh
     interpreter that imports no JAX."""
-    import tempfile
-
     import yaml
 
     t_phase = time.perf_counter()
@@ -2464,8 +2513,6 @@ def dryrun_phase(build, dev, seed):
     bytes against the measured ``max_memory_allocated``, its logits
     against the plain single-device prefill's bit for bit.  Returns the
     kernels' launches in (b)'s real run."""
-    import tempfile
-
     import torch.distributed as dist
 
     from repro_torch.configs import SHAPES, Shape, get_config
@@ -2674,6 +2721,400 @@ def insitu_phase(build, dev):
     return launched
 
 
+# --------------------------------------------------------------- phase 17
+def attribution_close(got, want, tol=1e-6) -> bool:
+    """Two attribution reports alike: the same instances, critical instance,
+    steps and edges, the same byte and plan-cache counts, and every second
+    within ``tol`` (the export rounds each timestamp to 1 ns)."""
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and sorted(got) == sorted(want)
+                and all(attribution_close(got[k], want[k], tol) for k in want))
+    if isinstance(want, float) and isinstance(got, (int, float)):
+        return abs(got - want) <= tol
+    return got == want
+
+
+def cli_report(path):
+    """``python -m repro_torch.obs report PATH --json`` in a fresh
+    interpreter: (its report, the modules it imported)."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    p = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                        "repro_torch.obs", "report", path, "--json"],
+                       capture_output=True, text=True, env=env, timeout=300)
+    if p.returncode != 0:
+        raise RuntimeError(f"obs report exited {p.returncode}: {p.stderr[-2000:]}")
+    mods = {line.rsplit("|", 1)[1].strip() for line in p.stderr.splitlines()
+            if line.startswith("import time:") and "|" in line}
+    return json.loads(p.stdout), mods
+
+
+class GcClock:
+    """Seconds the host's garbage collector ran, and its collections by
+    generation, while the ``with`` block ran."""
+
+    def __enter__(self):
+        self.seconds, self.collections, self._t0 = 0.0, [0, 0, 0], 0.0
+        gc.callbacks.append(self._tick)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._tick)
+
+    def _tick(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._t0
+            self.collections[info["generation"]] += 1
+
+
+def live_recorders() -> int:
+    from repro_torch.obs import SpanRecorder
+
+    gc.collect()
+    return sum(type(o) is SpanRecorder for o in gc.get_objects())
+
+
+def trace_phase(core, build, dev, seed, untraced, tmp):
+    """Phase 17: phase 3's workflow traced.  Untraced and traced runs
+    alternate for the wall times (``verify=False``, as phase 4), each
+    creating a recorder only when traced, and no recorder outlives them;
+    then one traced run with ``verify=True`` is held to every gate: blocks
+    equal to the field, K1 and K2 launched as in phase 3 (``untraced``),
+    spans of every layer in ``TRACE_LAYERS``, each instance's buckets
+    summing to its window, an exact export round trip and the offline
+    CLI's attribution equal to the run's.  Traces go to ``tmp``.  Returns
+    the gate run's launches."""
+    from repro_torch.obs import attribute, load_trace, span_categories, to_chrome
+    from repro_torch.obs.critical import PRECEDENCE
+    from repro_torch.obs.recorder import created_count
+
+    t_phase = time.perf_counter()
+    walls = {"untraced": [], "traced": []}
+    gc_s = {"untraced": [], "traced": []}
+    gc_runs = {"untraced": [], "traced": []}
+    problems = []
+    for i in range(TRACE_RUNS):
+        for mode in ("untraced", "traced"):
+            n0 = created_count()
+            trace = os.path.join(tmp, f"t{i}.json") if mode == "traced" else None
+            with GcClock() as clock:
+                report, _, _, wall = workflow(core, dev, seed + 1, verify=False,
+                                              trace=trace)
+            made = created_count() - n0
+            if made != (1 if trace else 0):
+                problems.append(f"{mode} run {i} created {made} recorders")
+            walls[mode].append(wall / STEPS)
+            gc_s[mode].append(clock.seconds)
+            gc_runs[mode].append(clock.collections)
+    del report
+    alive = live_recorders()   # after the loop, so no run starts on a swept heap
+    if alive:
+        problems.append(f"{alive} recorders outlived their runs")
+    path = os.path.join(tmp, "trace.json")
+    build.reset_launch_counts()
+    report, calls, failures, wall = workflow(core, dev, seed, verify=True,
+                                             trace=path)
+    launches = build.launch_counts(["pack_blocks", "pack_cols"])
+    if failures:
+        problems.append(f"blocks differ from the field: {failures[:5]}")
+    if launches != {k: untraced[k] for k in launches}:
+        problems.append(f"traced launches {launches}, untraced {untraced}")
+    spans = load_trace(path)
+    layers = span_categories(spans)
+    if not TRACE_LAYERS <= set(layers):
+        problems.append(f"spans cover {layers}, not {sorted(TRACE_LAYERS)}")
+    att = report.critical_path
+    buckets = PRECEDENCE + ("compute",)
+    worst_sum = max(abs(sum(row[b] for b in buckets) - row["window_s"])
+                    for row in att["instances"].values())
+    if worst_sum > 1e-9:
+        problems.append(f"buckets miss a window by {worst_sum} s")
+    with open(path) as f:
+        doc = json.load(f)
+    if to_chrome(spans) != doc:
+        problems.append("exporting the loaded trace gives another document")
+    cli, mods = cli_report(path)
+    banned = sorted(m for m in mods if m.split(".")[0] in ("jax", "jaxlib",
+                                                            "ml_dtypes", "repro"))
+    if banned:
+        problems.append(f"the CLI imported {banned[:5]}")
+    if cli != json.loads(json.dumps(attribute(spans))):
+        problems.append("the CLI's attribution differs from the loaded trace's")
+    if not attribution_close(cli, json.loads(json.dumps(att))):
+        problems.append("the CLI's attribution differs from the run's")
+    crit = att["critical"]
+    u, t = statistics.median(walls["untraced"]), statistics.median(walls["traced"])
+    emit({"phase": "trace", "steps": STEPS, "runs": TRACE_RUNS,
+          "wall_s_per_step_untraced": walls["untraced"],
+          "wall_s_per_step_traced": walls["traced"],
+          "median_untraced": u, "median_traced": t, "traced_over_untraced": t / u,
+          "gc_s_untraced": gc_s["untraced"], "gc_s_traced": gc_s["traced"],
+          "gc_collections_untraced": gc_runs["untraced"],
+          "gc_collections_traced": gc_runs["traced"], "recorders_alive": alive,
+          "gate_wall_s": wall, "spans": report.trace_spans, "layers": layers,
+          "trace_bytes": os.path.getsize(path), "launches": launches,
+          "reshard_calls": calls, "worst_bucket_sum_error_s": worst_sum,
+          "critical": crit, "instances": att["instances"],
+          "critical_steps": att["steps"],
+          "edges": {e: {k: r[k] for k in ("blocked_s", "prep_s", "bytes")}
+                    for e, r in att["edges"].items()},
+          "cli_modules": len(mods), "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return launches
+
+
+# --------------------------------------------------------------- phase 18
+def quiet(fn, *args, **kw):
+    """``fn`` with the example's prints kept out of the script's output."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def traced_recount(evolve_fn, rho, snapshots):
+    """What the traced example's reeber counts, in a plain loop: each of
+    its two instances raveled its slab, took it for the global field and
+    counted its ranks' half."""
+    out, grid = [], rho.shape[0]
+    for t in range(snapshots):
+        rho = evolve_fn(rho, t)
+        n = 0
+        for i in range(2):
+            slab = rho[i * grid // 2:(i + 1) * grid // 2].reshape(-1)
+            half = slab.numel() // 2
+            n += int((slab[i * half:(i + 1) * half] > THRESHOLD).sum())
+        out.append(n)
+    return out
+
+
+def spill_into(mod, tmp):
+    """``mod`` with its workflows' checkpoints kept under ``tmp``."""
+    mod.Wilkins = functools.partial(mod.Wilkins, spill_dir=tmp)
+    return mod
+
+
+def traced_example_phase(build, dev, seed, tmp):
+    """Phase 18: ``examples/torch_cosmology_traced.py``'s ``run`` at 256^3
+    float64 from a seeded field, crash-free and traced with reeber[1]
+    crashing at recv step 2.  Gates: the example's own acceptance (one
+    restart, every layer), halo counts equal to the crash-free run's and
+    to a plain recount, K1 launched once per rank block reeber's reshard
+    returned and K2 never.  The trace and the checkpoints go to ``tmp``."""
+    mod = spill_into(example("torch_cosmology_traced"), tmp)
+    t_phase = time.perf_counter()
+    rho0 = initial_density(dev, seed, torch.float64)
+    plain = traced_recount(mod.evolve, rho0, TRACED_SNAPSHOTS)
+    path = os.path.join(tmp, "trace.json")
+    rows, launches, problems = {}, {}, []
+    for tag, faults, trace in (("crash_free", None, None),
+                               ("faulted", mod.FAULT, path)):
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        report, counts, blocks = quiet(
+            mod.run, dev, grid=SHAPE[0], snapshots=TRACED_SNAPSHOTS, rho0=rho0,
+            faults=faults, trace=trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[tag] = build.launch_counts(["pack_blocks", "pack_cols"])
+        if launches[tag] != {"pack_blocks": blocks, "pack_cols": 0} or not blocks:
+            problems.append(f"{tag}: launches {launches[tag]} for {blocks} blocks")
+        if counts != plain:
+            problems.append(f"{tag}: counts {counts} != plain {plain}")
+        rows[tag] = {"wall_s": wall, "wall_s_per_snapshot": wall / TRACED_SNAPSHOTS,
+                     "counts": counts, "rank_blocks": blocks,
+                     "restarts": [e["task"] for e in report.restarts],
+                     "spans": report.trace_spans}
+        if trace:
+            try:
+                spans = mod.accept(report, trace)
+                rows[tag]["layers"] = sorted({s["cat"] for s in spans})
+                rows[tag]["critical"] = report.critical_path["critical"]
+            except AssertionError as e:
+                problems.append(f"{tag}: the example's acceptance failed: {e}")
+    emit({"phase": "traced_example", "grid": SHAPE[0], "dtype": "float64",
+          "snapshots": TRACED_SNAPSHOTS, "runs": rows, "launches": launches,
+          "plain_recount_equal": not any("plain" in p for p in problems),
+          "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return launches
+
+
+# --------------------------------------------------------------- phase 19
+def examples_faults_phase(build, dev, seed, tmp):
+    """Phase 19: the fault-tolerant and elastic examples' ``run`` at 256^3
+    float64 from a seeded field, 8 snapshots.  Gates: each faulted run's
+    counts byte-identical to its crash-free run's, which equal a plain
+    recount; two restarts and viz dropped, one (2, 1) rescale by policy,
+    one by the stall watchdog (``stall_timeout_s: 0.3`` as the example
+    sets it).  Neither example reshards, so no kernel launches.  The
+    checkpoints go to ``tmp``."""
+    ft = spill_into(example("torch_cosmology_faulttolerant"), tmp)
+    el = spill_into(example("torch_cosmology_elastic"), tmp)
+    t_phase = time.perf_counter()
+    rho0 = initial_density(dev, seed, torch.float64)
+    rho, per_snap, per_row = rho0, [], []
+    for t in range(FT_SNAPSHOTS):
+        rho = ft.evolve(rho, t)
+        per_row.append((rho > THRESHOLD).sum(dim=(1, 2)))
+        per_snap.append(int(per_row[-1].sum()))
+    per_row = torch.stack(per_row, dim=1).cpu().numpy()
+    rows, problems = {}, []
+    build.reset_launch_counts()
+
+    def timed(fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = quiet(fn, *args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for tag, faults in (("crash_free", None), ("faulted", ft.FAULTS)):
+        (report, counts), wall = timed(ft.run, dev, grid=SHAPE[0],
+                                       snapshots=FT_SNAPSHOTS, rho0=rho0,
+                                       faults=faults)
+        if counts != per_snap:
+            problems.append(f"faulttolerant {tag}: {counts} != plain {per_snap}")
+        restarts = sorted(e["task"] for e in report.restarts)
+        want = (["nyx", "reeber"], [("viz", 0)]) if faults else ([], [])
+        if (restarts, report.dropped_tasks) != want:
+            problems.append(f"faulttolerant {tag}: restarts {restarts}, "
+                            f"dropped {report.dropped_tasks}")
+        rows[f"faulttolerant_{tag}"] = {
+            "wall_s": wall, "wall_s_per_snapshot": wall / FT_SNAPSHOTS,
+            "restarts": restarts, "dropped": report.dropped_tasks,
+            "halo_cells_per_snapshot": counts}
+    want = {"crash_free": [], "crash": [(2, 1, "policy")],
+            "stall": [(2, 1, "stall")]}
+    for tag in ("crash_free", "crash", "stall"):
+        (report, counts), wall = timed(el.run, tag, dev, grid=SHAPE[0],
+                                       snapshots=FT_SNAPSHOTS, rho0=rho0,
+                                       faults=el.FAULTS.get(tag))
+        rescales = [(e["old_nslots"], e["new_nslots"], e["trigger"])
+                    for e in report.rescales]
+        stalls = [{k: e[k] for k in ("instance", "silent_s", "action")}
+                  for e in report.stalls]
+        if not np.array_equal(counts, per_row):
+            problems.append(f"elastic {tag}: counts differ from the plain recount")
+        if rescales != want[tag]:
+            problems.append(f"elastic {tag}: rescales {rescales}, expected "
+                            f"{want[tag]} (stalls {stalls})")
+        if tag == "stall" and [s["action"] for s in stalls] != ["rescale"]:
+            problems.append(f"elastic stall: stalls {stalls}")
+        rows[f"elastic_{tag}"] = {
+            "wall_s": wall, "wall_s_per_snapshot": wall / FT_SNAPSHOTS,
+            "rescales": [{k: e[k] for k in ("trigger", "cut_step", "latency_s")}
+                         for e in report.rescales],
+            "stalls": stalls,
+            "final_instances": (report.rescales[-1]["new_nslots"]
+                                if report.rescales else 2)}
+    launches = build.launch_counts(["pack_blocks", "pack_cols"])
+    emit({"phase": "examples_faults", "grid": SHAPE[0], "dtype": "float64",
+          "snapshots": FT_SNAPSHOTS, "runs": rows, "launches": launches,
+          "plain_recount_equal": not any("plain" in p for p in problems),
+          "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return launches
+
+
+# --------------------------------------------------------------- phase 20
+def flowcontrol_phase(build, dev):
+    """Phase 20: ``examples/torch_cosmology_flowcontrol.py``'s ``run`` at
+    256^3 float32, 10 snapshots, ``io_freq: 2``, the paper's action script
+    written to a temporary ``action_dirs`` entry.  Gates: the script's
+    callback served at every second close and only there, reeber analysed
+    ``FLOW_ANALYSED`` (the JAX example's set), each count equal to a plain
+    recount of the same field on the card, every payload nyx's own tensor
+    on the card with no byte copied."""
+    from repro_torch.core.datamodel import reset_transport_stats, transport_stats
+
+    mod = example("torch_cosmology_flowcontrol")
+    t_phase = time.perf_counter()
+    reset_transport_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    analysed, report, broadcasts = quiet(mod.run, dev, grid=SHAPE[0],
+                                         count=FLOW_SNAPSHOTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = transport_stats().snapshot()
+    launches = build.launch_counts(["pack_blocks", "pack_cols"])
+    problems = []
+    closes = [int(b.split("=", 1)[1].split()[0]) for b in broadcasts]
+    if closes != [2 * (t + 1) for t in range(FLOW_SNAPSHOTS)]:
+        problems.append(f"served at closes {closes}")
+    if (report.total_served, report.total_dropped) != (5, 5):
+        problems.append(f"served {report.total_served}, skipped "
+                        f"{report.total_dropped}, expected 5 and 5")
+    if sorted(analysed) != FLOW_ANALYSED:
+        problems.append(f"analysed {sorted(analysed)}, the JAX example {FLOW_ANALYSED}")
+    plain = {t: int(mod.find_halos(rho)) for t, rho in
+             mod.snapshots(SHAPE[0], FLOW_SNAPSHOTS, dev) if t in analysed}
+    if {t: v[0] for t, v in analysed.items()} != plain:
+        problems.append("halo counts differ from the plain recount")
+    bad = [t for t, (_, d, shape, shared) in analysed.items()
+           if d != str(dev) or shape != SHAPE or not shared]
+    if bad or stats["bytes_copied"] != 0:
+        problems.append(f"payloads off the card, cut or copied at {bad}; "
+                        f"{stats['bytes_copied']} bytes copied")
+    emit({"phase": "flowcontrol", "grid": SHAPE[0], "snapshots": FLOW_SNAPSHOTS,
+          "wall_s": wall, "wall_s_per_snapshot": wall / FLOW_SNAPSHOTS,
+          "served": report.total_served, "skipped": report.total_dropped,
+          "analysed": sorted(analysed), "serve_closes": closes,
+          "halo_cells": {t: v[0] for t, v in sorted(analysed.items())},
+          "plain_recount_equal": not any("plain" in p for p in problems),
+          "copies": stats["copies"], "bytes_copied": stats["bytes_copied"],
+          "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return launches
+
+
+# --------------------------------------------------------------- phase 21
+def quickstart_phase(build, dev):
+    """Phase 21: ``examples/torch_quickstart.py``'s ``run`` (Listing 1,
+    N = 1,000,000, 5 timesteps) on the card.  Gates: consumer1's total 10,
+    consumer2 launched once per timestep with data, every received tensor
+    sharing the producer's storage, no byte copied, and the particle means
+    equal to a plain recount of the reference's draw on the card."""
+    mod = example("torch_quickstart")
+    t_phase = time.perf_counter()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = quiet(mod.run, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = build.launch_counts(["pack_blocks", "pack_cols"])
+    report, stats = out["report"], out["stats"]
+    plain = [mod.particles(t, mod.N, dev).mean(dim=0, dtype=torch.float64)
+             for t in range(mod.STEPS)]
+    problems = []
+    if out["total"] != sum(range(mod.STEPS)):
+        problems.append(f"consumer1's total {out['total']}")
+    if len(out["means"]) != mod.STEPS:
+        problems.append(f"consumer2 analysed {len(out['means'])} timesteps")
+    elif not all(torch.equal(a, b) for a, b in zip(out["means"], plain)):
+        problems.append("particle means differ from the plain recount")
+    if len(out["shared"]) != 2 * mod.STEPS or not all(out["shared"]):
+        problems.append(f"received tensors not the producer's: {out['shared']}")
+    if stats["copies"] or stats["bytes_copied"]:
+        problems.append(f"{stats['copies']} copies, {stats['bytes_copied']} bytes")
+    emit({"phase": "quickstart", "n": mod.N, "steps": mod.STEPS, "wall_s": wall,
+          "wall_s_per_step": wall / mod.STEPS, "total": out["total"],
+          "consumer2_launches": report.task_launches.get(("consumer2", 0)),
+          "means": [m.tolist() for m in out["means"]],
+          "shared_storage": all(out["shared"]), "copies": stats["copies"],
+          "bytes_copied": stats["bytes_copied"], "served": report.total_served,
+          "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2785,6 +3226,18 @@ def main() -> int:
     parallel_k3 = parallel_phase(build, dev, args.seed)
     dryrun_launches = dryrun_phase(build, dev, args.seed)
     insitu_launches = insitu_phase(build, dev)
+    def scratch(phase, *args):
+        with tempfile.TemporaryDirectory(prefix="wilkins_smoke_") as tmp:
+            return phase(*args, tmp)
+
+    trace_launches = scratch(trace_phase, core, build, dev, args.seed,
+                             {k: launches[k] for k in ("pack_blocks", "pack_cols")})
+    example_launches = {f"traced_{run}": n for run, n in
+                        scratch(traced_example_phase, build, dev, args.seed).items()}
+    example_launches["faulttolerant_elastic"] = scratch(
+        examples_faults_phase, build, dev, args.seed)
+    example_launches["flowcontrol"] = flowcontrol_phase(build, dev)
+    example_launches["quickstart"] = quickstart_phase(build, dev)
 
     kernels = time_kernels(pack, ops, ref, dev, rates[0], launches, STEPS, worst)
     for k in kernels:
@@ -2814,6 +3267,10 @@ def main() -> int:
                                   and k["dtype"] == "float32" else 0)
         # phase 15 (b): the dry run's cell run for real takes the plain path
         k["launches_dryrun"] = dryrun_launches.get(k["name"], 0)
+        # phase 17's traced gate run; phases 18-21, by example run
+        k["launches_trace"] = trace_launches.get(k["name"], 0)
+        k["launches_examples"] = {run: n.get(k["name"], 0)
+                                  for run, n in example_launches.items()}
     emit({"phase": "run", "run_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -7,6 +7,8 @@ task's device as a tensor (``cuda:0`` unless ``--device`` says otherwise),
 each halo-finder instance receives its slab of it as a tensor on that
 device -- replayed snapshots included, which the surgery stitches on the
 device -- and its per-row counts are a tensor checkpointed as a shard.
+Nyx starts from the reference's uniform float64 field unless ``run`` is
+handed another (``rho0``).
 
 Wilkins features exercised:
   * ``on_failure: {rescale: {nslots: N}}`` -- a supervised restart that
@@ -20,7 +22,8 @@ Wilkins features exercised:
   * ``comm.checkpoint(state, sharded_axes={"counts": 0})``.
 
 The acceptance property: the resized run's halo counts, concatenated over
-the final instances, are byte-identical to a crash-free run's.
+the final instances, are byte-identical to a crash-free run's (``run``
+returns the report and the counts).
 
     PYTHONPATH=src python examples/torch_cosmology_elastic.py [--device cpu]
 """
@@ -35,7 +38,6 @@ from repro_torch.core.redistribute import even_blocks
 
 GRID = 32
 SNAPSHOTS = 8
-SEED = 0
 
 WORKFLOW = """
 tasks:
@@ -66,80 +68,92 @@ def evolve(rho, t):
     return torch.clamp(rho + 0.1 * lap + 0.01 * torch.sin(t + rho), min=0.0)
 
 
-def initial_density(device):
-    g = torch.Generator(device="cpu").manual_seed(SEED)
-    return (1.0 + 0.05 * torch.randn((GRID,) * 3, generator=g,
-                                     dtype=torch.float64)).to(device)
+def uniform_density(grid, device):
+    """The reference's initial field: uniform, float64."""
+    return torch.ones((grid,) * 3, dtype=torch.float64, device=device)
 
 
-def nyx(comm):
-    state = {"rho": initial_density(comm.device),
-             "t": torch.zeros((), dtype=torch.int64)}
-    restored = comm.restore(state)
-    if restored is not None:
-        state = restored[1]
-    for t in range(int(state["t"]), SNAPSHOTS):
-        rho = evolve(state["rho"], t)
-        with h5.File(f"plt{t:05d}.h5", "w") as f:
-            f.create_dataset("/level_0/density", data=rho, copy=False)
-        state = {"rho": rho, "t": torch.tensor(t + 1)}
-        comm.checkpoint(state)
+def run(tag="run", device="cuda:0", grid=GRID, snapshots=SNAPSHOTS, rho0=None,
+        faults=None):
+    """Run the workflow from ``rho0`` (the reference's uniform field unless
+    given) with ``faults`` injected.  Returns ``(report, counts)``: reeber's
+    halo cells per row and snapshot, concatenated over the final
+    instances (a ``(grid, snapshots)`` int64 array)."""
+    device = torch.device(device)
+    rho0 = uniform_density(grid, device) if rho0 is None else rho0.to(device)
+    results = {}
 
+    def nyx(comm):
+        state = {"rho": rho0, "t": torch.zeros((), dtype=torch.int64)}
+        restored = comm.restore(state)
+        if restored is not None:
+            state = restored[1]
+        for t in range(int(state["t"]), snapshots):
+            rho = evolve(state["rho"], t)
+            with h5.File(f"plt{t:05d}.h5", "w") as f:
+                f.create_dataset("/level_0/density", data=rho, copy=False)
+            state = {"rho": rho, "t": torch.tensor(t + 1)}
+            comm.checkpoint(state)
 
-RESULTS = {}
+    def reeber():
+        """Halo finder over ITS slab of the density grid.  The slab extent
+        comes from the instance's frozen ``RedistSpec``, so the same body
+        runs before the rescale (2 instances) and after (1 instance, whole
+        grid)."""
+        comm = world()
+        spec = comm.resolve_redist_spec(port="plt*.h5")
+        _, (rows,) = even_blocks((grid,), spec.nslots)[spec.slot]
+        state = {"counts": torch.zeros((rows, snapshots), dtype=torch.int64,
+                                       device=comm.device),
+                 "n": torch.zeros((), dtype=torch.int64)}
+        restored = comm.restore(state)
+        if restored is not None:
+            state = restored[1]
+            print(f"[reeber{comm.instance}] attempt {comm.attempt}: "
+                  f"resumed after {int(state['n'])} snapshots with a "
+                  f"{rows}-row shard")
+        counts, n = state["counts"].clone(), int(state["n"])
+        while True:
+            f = h5.File("plt*.h5", "r")
+            if f is None:
+                break
+            slab = f["/level_0/density"][...]   # THIS instance's rows only
+            counts[:, n] = (slab > 1.01).sum(dim=(1, 2))
+            n += 1
+            comm.checkpoint({"counts": counts, "n": torch.tensor(n)},
+                            sharded_axes={"counts": 0})
+        results[comm.instance] = counts.cpu().numpy()
 
-
-def reeber():
-    """Halo finder over ITS slab of the density grid.  The slab extent comes
-    from the instance's frozen ``RedistSpec``, so the same body runs before
-    the rescale (2 instances) and after (1 instance, whole grid)."""
-    comm = world()
-    spec = comm.resolve_redist_spec(port="plt*.h5")
-    _, (rows,) = even_blocks((GRID,), spec.nslots)[spec.slot]
-    state = {"counts": torch.zeros((rows, SNAPSHOTS), dtype=torch.int64,
-                                   device=comm.device),
-             "n": torch.zeros((), dtype=torch.int64)}
-    restored = comm.restore(state)
-    if restored is not None:
-        state = restored[1]
-        print(f"[reeber{comm.instance}] attempt {comm.attempt}: resumed "
-              f"after {int(state['n'])} snapshots with a {rows}-row shard")
-    counts, n = state["counts"].clone(), int(state["n"])
-    while True:
-        f = h5.File("plt*.h5", "r")
-        if f is None:
-            break
-        slab = f["/level_0/density"][...]   # THIS instance's rows only
-        counts[:, n] = (slab > 1.01).sum(dim=(1, 2))
-        n += 1
-        comm.checkpoint({"counts": counts, "n": torch.tensor(n)},
-                        sharded_axes={"counts": 0})
-    RESULTS[comm.instance] = counts.cpu().numpy()
-
-
-def run(tag, devices, faults=None):
-    RESULTS.clear()
-    w = Wilkins(WORKFLOW, {"nyx": nyx, "reeber": reeber}, devices=devices)
+    w = Wilkins(WORKFLOW, {"nyx": nyx, "reeber": reeber}, devices=[device])
     report = w.run(timeout=300, faults=faults)
     final = w.graph.tasks["reeber"].task_count
-    counts = np.concatenate([RESULTS[j] for j in range(final)], axis=0)
-    print(f"[{tag}] reeber finished at taskCount={final}; per-snapshot halo "
-          f"cells: {counts.sum(axis=0).tolist()}")
+    counts = np.concatenate([results[j] for j in range(final)], axis=0)
+    print(f"[{tag}] reeber finished at taskCount={final}; per-snapshot "
+          f"halo cells: {counts.sum(axis=0).tolist()}")
     return report, counts
+
+
+#: run name -> the fault it injects: reeber[0] crashes at snapshot 2 (a
+#: policy rescale 2->1), reeber[1] hangs without crashing (the watchdog
+#: declares a stall and rescales 2->1)
+FAULTS = {
+    "crash": FaultSpec(task="reeber", point="recv", step=2, instance=0),
+    "stall": FaultSpec(task="reeber", kind="stall", point="recv", step=1,
+                       instance=1, seconds=2.0),
+}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda:0")
-    devices = [torch.device(ap.parse_args(argv).device)]
+    device = ap.parse_args(argv).device
 
     print("=== crash-free reference run (2 halo-finder instances) ===")
-    _, ref = run("reference", devices)
+    _, ref = run("reference", device)
 
     print("\n=== faulted run: reeber[0] crashes at snapshot 2 -> policy "
           "rescale 2->1 ===")
-    report, crash_counts = run("crash", devices, faults=FaultSpec(
-        task="reeber", point="recv", step=2, instance=0))
+    report, crash_counts = run("crash", device, faults=FAULTS["crash"])
     print("\n" + report.summary())
     assert len(report.rescales) == 1
     assert (report.rescales[0]["old_nslots"],
@@ -149,9 +163,7 @@ def main(argv=None):
 
     print("\n=== stalled run: reeber[1] hangs (no crash) -> watchdog "
           "declares a stall -> rescale 2->1 ===")
-    report, stall_counts = run("stall", devices, faults=FaultSpec(
-        task="reeber", kind="stall", point="recv", step=1, instance=1,
-        seconds=2.0))
+    report, stall_counts = run("stall", device, faults=FAULTS["stall"])
     print("\n" + report.summary())
     assert len(report.stalls) == 1 and report.stalls[0]["action"] == "rescale"
     assert report.rescales[0]["trigger"] == "stall"

@@ -261,8 +261,11 @@ class Wilkins:
         missing = [t for t in self.graph.tasks if t not in self.funcs]
         if missing:
             raise ValueError(f"no callable provided for tasks: {missing}")
-        self.spill_dir = spill_dir or os.path.join(tempfile.gettempdir(),
-                                                  f"wilkins_spill_{os.getpid()}")
+        # not the reference's ``wilkins_spill_<pid>``: both packages number
+        # their drivers from 1, so in one process a port run would restore
+        # the checkpoints a reference run left under the same root
+        self.spill_dir = spill_dir or os.path.join(
+            tempfile.gettempdir(), f"wilkins_torch_spill_{os.getpid()}")
         self.record_events = record_events
         self.max_restarts = max_restarts
         self.action_dirs = list(action_dirs)

@@ -49,9 +49,11 @@ from repro_torch.launch.specs import make_cell  # noqa: E402
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 ARCHS = {"llama3.2-3b": 1e-5, "mamba2-2.7b": 2e-4, "phi3.5-moe-42b-a6.6b": 2e-4,
          "zamba2-2.7b": 2e-4, "whisper-base": 1e-5, "internvl2-76b": 1e-5}
-RULES = ("baseline", "wg", "serve_baseline", "sp", "moe_ep")
+RULES = ("baseline", "wg", "serve_baseline", "sp", "moe_ep", "dp", "serve_wg",
+         "serve_repl")
 B, S, EXTRA = 4, 16, 4          # batch, prompt, cache room past the prompt
 STEPS = 2
+COMPRESS = ["--accum-steps", "2", "--compress-grads"]
 # one layer per stack (two for the hybrid: a Mamba layer and its group's
 # shared attention block) keeps the runs and traces short
 LAYERS = {"zamba2-2.7b": dict(n_layers=2, attn_every=2),
@@ -62,7 +64,7 @@ def _layers(arch):
     return LAYERS.get(arch, dict(n_layers=1))
 
 WORKER = r"""
-import json, sys
+import json, shutil, sys
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -115,11 +117,21 @@ for arch in spec["archs"]:
             dlogits, _ = fam.decode_step(model, cfg, nxt, cache)
         res[f"{arch}:{rv}"] = [logits.full_tensor().numpy().tolist(),
                                dlogits.full_tensor().numpy().tolist()]
-for wg in (False, True):
-    argv = ["--arch", "llama3.2-3b", "--reduced", "--steps", str(spec["steps"]),
+def argv(steps):
+    return ["--arch", "llama3.2-3b", "--reduced", "--steps", str(steps),
             "--global-batch", str(spec["b"]), "--seq-len", str(spec["s"]),
             "--device", "cpu", "--mesh", "2x2", "--log-every", "1"]
-    res[f"train:{wg}"] = launch.main(argv + (["--weight-gather"] if wg else []))
+for wg in (False, True):
+    res[f"train:{wg}"] = launch.main(argv(spec["steps"])
+                                     + (["--weight-gather"] if wg else []))
+res["train:compress"] = launch.main(argv(spec["steps"]) + spec["compress"])
+ckpt = ["--ckpt-dir", spec["ckpt"], "--ckpt-every", str(spec["steps"])]
+res["ckpt:first"] = launch.main(argv(spec["steps"]) + ckpt)
+dist.barrier()   # rank 0's checkpoint is on disk before any rank resumes
+if rank == 0:    # kept for one rank to resume from
+    shutil.copytree(spec["ckpt"], spec["ckpt"] + "_one")
+dist.barrier()
+res["ckpt:resumed"] = launch.main(argv(spec["steps"] + 1) + ckpt)
 if rank == 0:
     with open(out, "w") as f:
         json.dump(res, f)
@@ -193,7 +205,8 @@ def four_ranks(tmp_path_factory):
         arrays[arch] = _inputs(arch, rng)
         np.savez(tmp / f"{arch}.npz", **arrays[arch])
     spec = {"archs": list(ARCHS), "rules": list(RULES), "b": B, "s": S,
-            "steps": STEPS, "layers": {a: _layers(a) for a in ARCHS}}
+            "steps": STEPS, "layers": {a: _layers(a) for a in ARCHS},
+            "compress": COMPRESS, "ckpt": str(tmp / "ckpt4")}
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     procs = [subprocess.Popen(
         [sys.executable, "-c", WORKER, str(r), "4", str(tmp / "store"), str(tmp),
@@ -216,23 +229,31 @@ def four_ranks(tmp_path_factory):
     import torch.distributed as dist
     from repro_torch.launch import train as launch
 
+    def argv(steps):
+        return ["--arch", "llama3.2-3b", "--reduced", "--steps", str(steps),
+                "--global-batch", str(B), "--seq-len", str(S), "--device",
+                "cpu", "--log-every", "1"]
+
     one = {}
     try:
         for wg in (False, True):
-            argv = ["--arch", "llama3.2-3b", "--reduced", "--steps", str(STEPS),
-                    "--global-batch", str(B), "--seq-len", str(S), "--device",
-                    "cpu", "--log-every", "1"]
-            one[wg] = launch.main(argv + (["--weight-gather"] if wg else []))
+            one[wg] = launch.main(argv(STEPS) + (["--weight-gather"] if wg else []))
+        one["compress"] = launch.main(argv(STEPS) + COMPRESS)
+        one["ckpt:first"] = launch.main(argv(STEPS) + [
+            "--ckpt-dir", str(tmp / "ckpt1"), "--ckpt-every", str(STEPS)])
+        # one rank resumes from the four ranks' checkpoint of step 2
+        one["ckpt:resumed"] = launch.main(argv(STEPS + 1) + [
+            "--ckpt-dir", str(tmp / "ckpt4_one"), "--ckpt-every", str(STEPS)])
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    return got, want, one
+    return got, want, one, tmp
 
 
 @pytest.mark.parametrize("rules", RULES)
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_sharded_prefill_and_decode_match_the_unsharded_jax(four_ranks, arch, rules):
-    got, want, _ = four_ranks
+    got, want, _, _ = four_ranks
     logits, dlogits = got[f"{arch}:{rules}"]
     jl, jd = want[arch]
     assert np.shape(logits) == jl.shape and np.shape(dlogits) == jd.shape
@@ -242,13 +263,70 @@ def test_sharded_prefill_and_decode_match_the_unsharded_jax(four_ranks, arch, ru
 
 @pytest.mark.parametrize("wg", [False, True], ids=["baseline", "wg"])
 def test_four_rank_training_matches_one_rank(four_ranks, wg):
-    got, _, one = four_ranks
+    got, _, one, _ = four_ranks
     losses = got[f"train:{wg}"]
     assert len(losses) == STEPS == len(one[wg])
     for a, b in zip(losses, one[wg]):
         assert abs(a - b) <= 1e-5 * abs(b), (losses, one[wg])
     import torch.distributed as dist
     assert not dist.is_initialized()
+
+
+def test_four_rank_compressed_training_matches_one_rank(four_ranks):
+    """``--accum-steps 2 --compress-grads`` on the (2, 2) mesh: the
+    one-rank run's losses, bit for bit."""
+    got, _, one, _ = four_ranks
+    assert len(got["train:compress"]) == STEPS
+    assert got["train:compress"] == one["compress"]
+
+
+def _leaves(directory, step):
+    """{path: float64 array} of the checkpoint of ``step`` under
+    ``directory``."""
+    from repro_torch.train.checkpoint import _ckpt_name, load_pytree_flat
+
+    flat = load_pytree_flat(os.path.join(str(directory), _ckpt_name(step)))
+    return {k: (v.double().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v, np.float64)) for k, v in flat.items()}
+
+
+def _assert_leaves_close(a, b, rtol=1e-5):
+    """Each leaf of ``a`` within ``rtol`` of ``b``'s in relative L2 norm,
+    and equal where ``b``'s is zero: an absolute bound would pass any AdamW
+    moment that sits below it."""
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].shape == b[k].shape, k
+        err, norm = np.linalg.norm(a[k] - b[k]), np.linalg.norm(b[k])
+        assert err <= rtol * norm, (k, err, norm)
+
+
+def test_four_rank_checkpoint_saves_and_resumes(four_ranks):
+    """A checkpoint saved on the (2, 2) mesh after two steps holds the
+    one-rank run's state (each leaf within 1e-5 of its norm); resuming it
+    for a third step gives the same loss on the four ranks and on one, and
+    the same state; the JAX package's ``restore_latest`` reads the four
+    ranks' last checkpoint, leaf for leaf the values the port saved."""
+    from repro import train as jtrain
+
+    got, _, one, tmp = four_ranks
+    assert got["ckpt:first"] == one["ckpt:first"] == got["train:False"]
+    _assert_leaves_close(_leaves(tmp / "ckpt4", STEPS), _leaves(tmp / "ckpt1", STEPS))
+    assert len(got["ckpt:resumed"]) == len(one["ckpt:resumed"]) == 1
+    assert got["ckpt:resumed"] == one["ckpt:resumed"]
+    _assert_leaves_close(_leaves(tmp / "ckpt4", STEPS + 1),
+                         _leaves(tmp / "ckpt4_one", STEPS + 1))
+    jcfg = jget_config("llama3.2-3b", reduced=True)
+    like = jax.tree.map(np.asarray, jtrain.init_state(
+        jax.random.PRNGKey(0), jcfg, jtrain.AdamWConfig()))
+    jstep, jstate = jtrain.restore_latest(str(tmp / "ckpt4"), like)
+    assert jstep == STEPS + 1        # the resumed four-rank run's last save
+    assert jax.tree.structure(jstate) == jax.tree.structure(like)
+    saved = _leaves(tmp / "ckpt4", STEPS + 1)
+    jleaves = jax.tree.leaves(jstate)
+    assert len(jleaves) == len(saved)
+    for jleaf, (k, v) in zip(jleaves, saved.items()):
+        assert np.array_equal(np.asarray(jleaf, np.float64), v), k
 
 
 # --------------------------------------------------------------- dry run

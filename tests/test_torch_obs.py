@@ -37,8 +37,8 @@ from repro_torch.obs import (SpanRecorder, TraceConfig, attribute,  # noqa: E402
                              format_report, load_trace, per_edge,
                              span_categories)
 from repro_torch.obs.recorder import created_count  # noqa: E402
-from torch_twins import (CPU, assert_same, assert_same_deliveries,  # noqa: E402
-                         run_both)
+from torch_twins import (COPY_COUNTERS, CPU, assert_same,  # noqa: E402
+                         assert_same_deliveries, run_both)
 
 STEPS = 4
 N = 64
@@ -693,3 +693,143 @@ def test_obs_report_cli_empty_trace(tmp_path, capsys):
     json.dump({"traceEvents": []}, open(path, "w"))
     from repro_torch.obs.__main__ import main
     assert main(["report", path]) == 1
+
+
+# ---------------------------------------------------------------------------
+# the main path traced: the 4->2 workflow of ``chip_smoke.py`` phase 17
+# ---------------------------------------------------------------------------
+MAIN_SHAPE = (16, 16, 16)
+MAIN_STEPS = 2
+MAIN_YAML = """
+tasks:
+  - func: nyx
+    taskCount: 4
+    outports:
+      - filename: plt.h5
+        dsets: [{name: /density, memory: 1}]
+  - func: reeber
+    taskCount: 2
+    nprocs: 2
+    inports:
+      - filename: plt.h5
+        redistribute: 1
+        dsets: [{name: /density, memory: 1}]
+  - func: viz
+    taskCount: 2
+    nprocs: 2
+    inports:
+      - filename: plt.h5
+        redistribute: {axis: 1}
+        dsets: [{name: /density, memory: 1}]
+"""
+
+
+def _main_path(s, tmp_path):
+    """The 4->2 workflow through one package, traced into a file: four
+    producers of a seeded field each step, ``reeber`` resharding along axis
+    0 and ``viz`` along axis 1, both on the pack path.  Returns (report,
+    trace path)."""
+    import jax.numpy as jnp
+
+    from repro.core.redistribute import even_blocks
+
+    own = s.dm.BlockOwnership()
+    for r, (st, sh) in enumerate(even_blocks(MAIN_SHAPE, 4)):
+        own.add(r, st, sh)
+
+    def nyx(comm):
+        for t in range(MAIN_STEPS):
+            a = np.random.default_rng(100 * comm.instance + t) \
+                .random(MAIN_SHAPE).astype(np.float32)
+            with s.h5.File("plt.h5", "w") as f:
+                f.attrs["producer"] = comm.instance
+                f.attrs["step"] = t
+                if s.port:
+                    f.create_dataset("/density", data=s.data(a),
+                                     ownership=own, copy=False)
+                else:
+                    ds = f.inner.create_dataset("/density", data=jnp.asarray(a),
+                                                copy=False)
+                    ds.ownership = own
+
+    def consumer(comm):
+        while True:
+            f = s.h5.File("plt.h5", "r")
+            if f is None:
+                break
+            blocks = comm.reshard(f["/density"], prefer="pack")
+            s.record((comm.task, comm.instance, int(f.attrs["producer"]),
+                      int(f.attrs["step"])),
+                     np.concatenate([s.host(b).ravel() for b in blocks]))
+
+    path = str(tmp_path / f"main-{s.name}.json")
+    w = s.wilkins(MAIN_YAML, {"nyx": nyx, "reeber": consumer, "viz": consumer},
+                  spill_dir=str(tmp_path / s.name))
+    return w.run(timeout=60, trace=path), path
+
+
+def _span_counts(spans, cats=("reshard", "channel")):
+    out = {}
+    for sp in spans:
+        if sp["cat"] in cats and sp["ph"] == "X":
+            key = (sp["task"], sp["instance"], sp["cat"])
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def test_traced_main_path_matches_jax_and_the_cli(tmp_path):
+    """Both packages trace the 4->2 workflow alike: the same deliveries,
+    the same layers, the same reshard and channel spans per instance, and
+    each instance's buckets summing to its window; the port's offline CLI
+    (``python -m repro_torch.obs report --json``, a fresh interpreter)
+    gives the attribution of the trace it reads, which is the run's own
+    within the export's 1 ns rounding."""
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.obs.critical import PRECEDENCE
+
+    t, j = run_both(_main_path, tmp_path)
+    (rep, path), (jrep, jpath) = t.result, j.result
+    t.result, j.result = rep, jrep
+    assert len(t.side.got) == 2 * 2 * 2 * MAIN_STEPS   # 2 tasks x 2 inst x 2 prod
+    # viz's slab along axis 1 is a strided view of a tensor: the port's pack
+    # executor copies it once, counted, where a jax.Array has no strides
+    assert_same(t, j, counters=tuple(c for c in COPY_COUNTERS
+                                     if c not in ("copies", "bytes_copied")))
+    assert t.stats["copies"] == 4 * MAIN_STEPS and j.stats["copies"] == 0
+    assert t.stats["reshard_pack"] == len(t.side.got)
+    spans, jspans = load_trace(path), load_trace(jpath)
+    assert set(span_categories(spans)) == set(span_categories(jspans))
+    assert {"vol", "channel", "reshard"} <= set(span_categories(spans))
+    counts = _span_counts(spans)
+    assert counts == _span_counts(jspans)
+    assert all(counts[(task, i, "reshard")] == 2 * MAIN_STEPS
+               for task in ("reeber", "viz") for i in range(2))
+    buckets = PRECEDENCE + ("compute",)
+    for report in (rep, jrep):
+        rows = report.critical_path["instances"]
+        assert sorted(rows) == sorted(f"{task}[{i}]" for task, n in
+                                      (("nyx", 4), ("reeber", 2), ("viz", 2))
+                                      for i in range(n))
+        for row in rows.values():
+            assert abs(sum(row[b] for b in buckets) - row["window_s"]) <= 1e-9
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+    p = subprocess.run([sys.executable, "-m", "repro_torch.obs", "report", path,
+                        "--json"], capture_output=True, text=True, env=env,
+                       timeout=120)
+    assert p.returncode == 0, p.stderr
+    cli = json.loads(p.stdout)
+    assert cli == json.loads(json.dumps(attribute(spans)))
+    run = json.loads(json.dumps(rep.critical_path))
+    assert cli["critical"] == run["critical"]
+    for key in ("instances", "steps", "edges"):
+        assert sorted(cli[key]) == sorted(run[key])
+        for k, row in run[key].items():
+            for field, v in row.items():
+                if isinstance(v, float):
+                    assert abs(cli[key][k][field] - v) <= 1e-6, (key, k, field)
+                else:
+                    assert cli[key][k][field] == v, (key, k, field)

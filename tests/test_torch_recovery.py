@@ -268,8 +268,23 @@ FAST_SWEEP = [
 ]
 
 
-@pytest.mark.parametrize("task,point,step", FAST_SWEEP)
-def test_fault_sweep_representative(tmp_path, task, point, step):
+def _sweep_cases():
+    """The reference's exhaustive sweep (tests/test_recovery.py
+    ``_sweep_cases``): every task at start, each producer at every close,
+    each consumer at every open and recv -- c2 opens two files a loop, so
+    its steps run to 2 * STEPS - 1."""
+    cases = [(t, "start", 0) for t in ("p1", "p2", "c1", "c2")]
+    cases += [(t, "close", s) for t in ("p1", "p2") for s in range(STEPS)]
+    for pt in ("open", "recv"):
+        cases += [("c1", pt, s) for s in range(STEPS)]
+        cases += [("c2", pt, s) for s in range(2 * STEPS)]
+    return cases
+
+
+SWEEP = _sweep_cases()
+
+
+def _run_sweep_case(tmp_path, task, point, step):
     out = _run_both(tmp_path, f"{task}_{point}_{step}",
                     FaultSpec(task=task, point=point, step=step))
     for port in (False, True):
@@ -278,6 +293,19 @@ def test_fault_sweep_representative(tmp_path, task, point, step):
             f"fault {task}/{point}/{step} never fired"
         assert [r["task"] for r in rep.restarts] == [task]
     _assert_byte_identical(out)
+
+
+@pytest.mark.parametrize("task,point,step", FAST_SWEEP)
+def test_fault_sweep_representative(tmp_path, task, point, step):
+    _run_sweep_case(tmp_path, task, point, step)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("task,point,step", SWEEP)
+def test_fault_sweep_exhaustive(tmp_path, task, point, step):
+    """Crash every task at every step boundary; output is always identical,
+    in both packages."""
+    _run_sweep_case(tmp_path, task, point, step)
 
 
 def test_mid_prefetch_crash_recovers_via_prep_retry(tmp_path):
@@ -784,3 +812,10 @@ def test_timeline_events_survive_json_roundtrip():
     tl2 = TelemetryTimeline.from_json(tl.to_json())
     assert tl2.events("restart") == tl.events("restart")
     assert [e["kind"] for e in tl2.events()] == ["restart", "drop"]
+
+
+def test_sweep_is_the_references():
+    from test_recovery import FAST_SWEEP as JFAST
+    from test_recovery import SWEEP as JSWEEP
+
+    assert SWEEP == JSWEEP and FAST_SWEEP == JFAST and len(SWEEP) == 36

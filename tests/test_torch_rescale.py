@@ -364,8 +364,23 @@ FAST_SWEEP = [
 ]
 
 
-@pytest.mark.parametrize("task,point,step,n", FAST_SWEEP)
-def test_rescale_sweep_representative(tmp_path, task, point, step, n):
+def _sweep_cases():
+    """The reference's exhaustive M->N sweep (tests/test_rescale.py
+    ``_sweep_cases``): every target size in {1, 2, 3}, each consumer at
+    every open and recv -- c2 opens two files a loop, so its steps run to
+    2 * STEPS - 1."""
+    cases = []
+    for n in (1, 2, 3):
+        for pt in ("open", "recv"):
+            cases += [("c1", pt, s, n) for s in range(STEPS)]
+            cases += [("c2", pt, s, n) for s in range(2 * STEPS)]
+    return cases
+
+
+SWEEP = _sweep_cases()
+
+
+def _run_sweep_case(tmp_path, task, point, step, n):
     kw = {"n1": n} if task == "c1" else {"n2": n}
     w, rep, _ = _run_both(tmp_path, f"{task}_{point}_{step}_{n}",
                           faults=FaultSpec(task=task, point=point, step=step),
@@ -374,6 +389,17 @@ def test_rescale_sweep_representative(tmp_path, task, point, step, n):
     if n != 2:
         assert [r["task"] for r in rep.rescales] == [task]
         assert rep.rescales[0]["new_nslots"] == n
+
+
+@pytest.mark.parametrize("task,point,step,n", FAST_SWEEP)
+def test_rescale_sweep_representative(tmp_path, task, point, step, n):
+    _run_sweep_case(tmp_path, task, point, step, n)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("task,point,step,n", SWEEP)
+def test_rescale_sweep_exhaustive(tmp_path, task, point, step, n):
+    _run_sweep_case(tmp_path, task, point, step, n)
 
 
 # ---------------------------------------------------------------------------
@@ -680,3 +706,10 @@ def test_reshard_blocks_rejects_bad_inputs():
         reshard_blocks([t], 2, axis=2)
     with pytest.raises(ValueError, match="disagree off-axis"):
         reshard_blocks([torch.zeros((2, 3)), torch.zeros((2, 4))], 2)
+
+
+def test_sweep_is_the_references():
+    from test_rescale import FAST_SWEEP as JFAST
+    from test_rescale import SWEEP as JSWEEP
+
+    assert SWEEP == JSWEEP and FAST_SWEEP == JFAST and len(SWEEP) == 72
