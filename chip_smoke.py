@@ -1,6 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py --k3-against DIR
+
+The second form builds only the kernels and times bf16 K3 against the
+one of another checkout at DIR (unpacked, e.g. with ``git archive``, into
+a directory ``.gitignore`` lists), the two in turns at phase 7's shapes.
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together) and then, each phase printing one
@@ -21,9 +26,10 @@ JSON line and any failure exiting non-zero:
 4. times -- the workflow's wall time per timestep;
 5. kernels_model -- flash attention (K3) and the SSD intra-chunk step (K4)
    against their plain PyTorch versions on the card: K3 in float32 (its
-   CUDA-core kernel) and bfloat16 (its tensor-core kernel), MHA / GQA / MQA,
-   head dims 16 to 128, causal, windowed and non-causal, S not a multiple of
-   the 64-row tile, q/k/v as strided slices of one fused tensor (read in
+   CUDA-core kernel) and bfloat16 (its wgmma/TMA kernel), MHA / GQA (rep 3)
+   / MQA (rep 8), head dims 16 to 128, causal, windowed (1 to 300 keys) and
+   non-causal (also Sq != Sk), S of 1, 127, 129 and 1000 about the 128-row
+   tile, q/k/v as strided slices of one fused tensor (read in
    place), the serving shape in both dtypes and phase 9's training shape
    (batch 2) in bf16, and the shapes phase 6's other models hand it
    (``FA_FAMILY_CASES``: zamba2's 32 heads of 80 with its 4096 window at
@@ -32,7 +38,9 @@ JSON line and any failure exiting non-zero:
    shapes of those four at batch 2); K4 with 1, 2 and 4
    groups, head counts that leave a short head subset, P above 64, ragged
    S, the serving shape, the training shape and zamba2's (N = 64); TF32
-   off, so the plain versions are float32;
+   off, so the plain versions are float32.  Every K3 case is also held,
+   at the same tolerance, to ``ref.flash_attention_tiles_ref``, the plain
+   twin in the kernel's order at its tile sizes;
 6. serve -- six models one after the other (``SERVE_MODELS``), at full
    width with random weights from ``--seed`` in bf16, through
    ``repro_torch.serve.Engine`` on ``cuda:0`` with ``use_flash``:
@@ -122,7 +130,9 @@ JSON line and any failure exiting non-zero:
    memory below 80 GB.  Printed per model: seconds per step, tokens/s,
    peak device memory, and, from a fifth step taken under
    ``torch.profiler``, the device time per step by kernel kind and its
-   share of the unprofiled step's wall time (the busy share), and the
+   share of the unprofiled step's wall time (the busy share; a model that
+   launches bf16 K3 must show ``fa_wgmma_kernel`` there as often as it
+   launched, and no ``fa_tc_kernel``), and the
    wall time of one more AdamW update (on zero gradients).  (d) For
    mamba2 (``accum_steps=2``, and with ``compress_grads``) and llama
    (``accum_steps=2``; compression would need about 80 GB): one plain step
@@ -288,6 +298,7 @@ import functools
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -698,7 +709,17 @@ FA_CASES = [  # (B, S, H, KV, D, dtype, causal, window)
     (1, TIME_S, 24, 8, 128, torch.float32, True, 0),   # the serving shape
     (1, TIME_S, 24, 8, 128, torch.bfloat16, True, 0),
     (2, TIME_S, 24, 8, 128, torch.bfloat16, True, 0),  # the training shape
+    (1, 1, 4, 4, 64, torch.bfloat16, True, 0),         # the bf16 kernel's
+    (1, 127, 6, 2, 128, torch.bfloat16, True, 0),      # edges: Sq 1, 127,
+    (1, 129, 8, 1, 128, torch.bfloat16, True, 0),      # 129 about its 128-row
+    (1, 1000, 4, 2, 48, torch.bfloat16, True, 1),      # tile, rep 8, windows
+    (1, 1000, 4, 2, 32, torch.bfloat16, True, 128),    # of 1, 128 and 300
+    (1, 1000, 4, 2, 112, torch.bfloat16, True, 300),   # about its 128-key
+    (2, 1000, 8, 8, 80, torch.bfloat16, True, 300),    # tile, D = 48, 32, 112
 ]
+# non-causal bf16, Sq != Sk: (B, Sq, Sk, H, KV, D)
+FA_CROSS_CASES = [(1, 100, 333, 4, 2, 64), (2, 333, 100, 4, 4, 128),
+                  (1, 1, 1000, 8, 1, 128)]
 # phase 6's other models, at the shapes their prefills hand K3: label ->
 # (B, S, H, KV, D, dtype, causal, window)
 FA_FAMILY_CASES = {
@@ -774,15 +795,23 @@ def check_model_kernels(ops, ref, build, dev):
 
     res = {"flash_attention": {"cases": 0, "max_abs_err_f32": 0.0,
                                "max_abs_err_bf16": 0.0, "max_share_of_limit": 0.0,
+                               "max_share_of_limit_twin": 0.0,
                                "serving_shape": {}, "family_shapes": {}},
            "ssd_intra_chunk": {"cases": 0, "max_abs_err": 0.0,
                                "family_shapes": {}}}
     cases = [(c, False, None) for c in FA_CASES] + [
         ((b, s, h, kv, d, torch.bfloat16, causal, 0), True, None)
         for b, s, h, kv, d, causal in FA_FUSED_CASES] + [
-        (c, False, label) for label, c in FA_FAMILY_CASES.items()]
+        (c, False, label) for label, c in FA_FAMILY_CASES.items()] + [
+        ((b, sq, h, kv, d, torch.bfloat16, False, 0), sk, None)
+        for b, sq, sk, h, kv, d in FA_CROSS_CASES]
     for i, ((b, s, h, kv, d, dt, causal, window), fused, label) in enumerate(cases):
-        if fused:
+        if fused is not True and fused:  # Sk of a cross case
+            g = torch.Generator(device=dev).manual_seed(100 + i)
+            q = torch.randn((b, s, h, d), generator=g, device=dev).to(dt)
+            k, v = (torch.randn((b, fused, kv, d), generator=g, device=dev).to(dt)
+                    for _ in range(2))
+        elif fused:
             g = torch.Generator(device=dev).manual_seed(100 + i)
             qkv = torch.randn((b, s, h + 2 * kv, d), generator=g, device=dev).to(dt)
             q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
@@ -793,15 +822,20 @@ def check_model_kernels(ops, ref, build, dev):
         got = launched("flash_attention", lambda: ops.flash_attention(
             q, k, v, causal=causal, window=window))
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        twin = ref.flash_attention_tiles_ref(q, k, v, causal=causal, window=window)
         atol, rtol = FA_TOL[dt]
         diff = (got.float() - want.float()).abs()
         err = diff.max().item()
         share = (diff / (atol + rtol * want.float().abs())).max().item()
-        if got.dtype != dt or share > 1:
+        share_twin = ((got.float() - twin.float()).abs()
+                      / (atol + rtol * twin.float().abs())).max().item()
+        if got.dtype != dt or share > 1 or share_twin > 1:
             raise RuntimeError(f"flash_attention differs from its plain version "
-                               f"(max abs err {err}, {share} of the limit): "
-                               f"{b, s, h, kv, d, dt, causal, window}")
+                               f"(max abs err {err}, {share} of the limit; "
+                               f"{share_twin} of it from the tiled twin): "
+                               f"{b, s, h, kv, d, dt, causal, window, fused}")
         r = res["flash_attention"]
+        r["max_share_of_limit_twin"] = max(r["max_share_of_limit_twin"], share_twin)
         key = "max_abs_err_f32" if dt == torch.float32 else "max_abs_err_bf16"
         r[key] = max(r[key], err)
         r["max_share_of_limit"] = max(r["max_share_of_limit"], share)
@@ -812,7 +846,7 @@ def check_model_kernels(ops, ref, build, dev):
                                          "max_abs_err": err, "share_of_limit": share}
         elif (b, s, h, kv, d) == (1, TIME_S, 24, 8, 128):
             r["serving_shape"][str(dt).removeprefix("torch.")] = err
-        del got, want, diff
+        del got, want, twin, diff
     ssd_cases = [(c, None) for c in SSD_CASES] + [
         (c, label) for label, c in SSD_FAMILY_CASES.items()]
     for i, ((b, s, h, p, g_, n, chunk), label) in enumerate(ssd_cases):
@@ -1218,6 +1252,79 @@ def time_model_kernels(ref, fa, ssd, dev, rates, launches, errs):
     return out
 
 
+def k3_against(other, build, fa, dev, rates):
+    """``--k3-against DIR``: bf16 K3 of this checkout against the one of
+    the checkout at DIR (its ``csrc/flash_attention.cu`` built here with
+    the same ``nvcc`` flags, called through this checkout's wrapper), timed
+    in turns (DIR's, this, this, DIR's) at phase 7's bf16 shapes, cold L2,
+    beside SDPA and the bound."""
+    import ctypes
+
+    src = os.path.join(other, "src", "repro_torch", "kernels", "csrc",
+                       "flash_attention.cu")
+    path = build.BUILD_DIR / "libflash_attention-against.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(path), src],
+                   check=True, capture_output=True)
+    build_s = time.perf_counter() - t0
+    # ptxas's report on this checkout's kernels: registers, spills, and
+    # whether it serialized any wgmma (C7512)
+    report = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(build.BUILD_DIR / "libflash_attention-ptxas.so"),
+         str(build.source_path("flash_attention"))],
+        check=True, capture_output=True, text=True)
+    ptxas, fn = {}, None
+    for line in (report.stdout + report.stderr).splitlines():
+        named = re.search(r"(fa_\w+_kernel)ILi(\d+)E", line)
+        if "Compiling entry function" in line:
+            fn = "<".join(named.groups()) + ">"
+            ptxas[fn] = {"c7512": False}
+        elif "C7512" in line:
+            ptxas["<".join(named.groups()) + ">"]["c7512"] = True
+        elif fn and "spill stores" in line:
+            ptxas[fn]["spill_bytes"] = int(
+                line.split("bytes spill stores")[0].split(",")[-1])
+        elif fn and "Used" in line and "registers" in line:
+            ptxas[fn]["registers"] = int(line.split("Used ")[1].split()[0])
+    ours = fa._library()
+    theirs = ctypes.CDLL(str(path))
+    theirs.wlk_flash_attention.argtypes = ours.wlk_flash_attention.argtypes
+    theirs.wlk_flash_attention.restype = ctypes.c_int
+
+    def run(lib, q, k, v, window):
+        fa._lib = lib
+        try:
+            return fa.flash_attention(q, k, v, True, window)
+        finally:
+            fa._lib = ours
+
+    bw, rate, _ = rates
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    shapes = {"llama serving": (1, TIME_S, 24, 8, 128, 0)}
+    shapes.update({label: (b, s, h, kv, d, window) for label, (b, s, h, kv, d, dt, _,
+                                                              window)
+                   in FA_FAMILY_CASES.items() if dt == torch.bfloat16})
+    rows = {}
+    for label, (b, s, h, kv, d, window) in shapes.items():
+        q, k, v = fa_inputs(dev, b, s, h, kv, d, torch.bfloat16, 9)
+        diff = (run(theirs, q, k, v, window).float()
+                - run(ours, q, k, v, window).float()).abs().max().item()
+        ms = [time_ms(lambda: run(lib, q, k, v, window), flush)
+              for lib in (theirs, ours, ours, theirs)]
+        flops = fa_flops(b, s, h, d, window)
+        bound = max(flops / rate, (2 * q.numel() + 2 * k.numel()) * 2 / bw) * 1e3
+        library, _ = sdpa(q, k, v, window)
+        rows[label] = {"shape": [b, s, h, kv, d], "window": window,
+                       "against_ms": [ms[0], ms[3]], "ms": [ms[1], ms[2]],
+                       "bound_ms": bound, "share_of_bound": bound / min(ms[1:3]),
+                       "library_ms": time_ms(library, flush),
+                       "max_abs_diff": diff}
+    return {"phase": "k3_against", "against": other, "build_s": build_s,
+            "ptxas": ptxas, "shapes": rows}
+
+
 # --------------------------------------------------------------- phase 8
 def evolve(rho, t):
     """One deterministic diffusion step (pure function of (state, t))."""
@@ -1434,7 +1541,11 @@ def profiled_step(step, state, batch, wall_per_step):
     if not dev_s:
         return state, {"busy_share": "not measured: no device time in the trace"}
     by_kind = {}
+    k3 = {}
     for e in dev:
+        for key in K3_KERNELS:
+            if key in e.key:
+                k3[key] = k3.get(key, 0) + e.count
         kind = kernel_kind(e.key)
         t, n = by_kind.get(kind, (0.0, 0))
         by_kind[kind] = (t + e.self_device_time_total * 1e-6, n + e.count)
@@ -1444,10 +1555,16 @@ def profiled_step(step, state, batch, wall_per_step):
         "busy_share": dev_s / wall_per_step,
         "busy_share_of_profiled_step": dev_s / wall,
         "device_kernels_per_step": sum(e.count for e in dev),
+        "k3_device_kernels": k3,
         "device_s_by_kind": {k: [t, n] for k, (t, n) in
                              sorted(by_kind.items(), key=lambda kv: -kv[1][0])},
         "top_device_kernels": [[e.key[:80], e.self_device_time_total * 1e-6, e.count]
                                for e in top]}
+
+
+K3_WGMMA = "fa_wgmma_kernel"  # bf16 K3's device kernel
+K3_RETIRED = "fa_tc_kernel"   # its mma.sync predecessor, which must not run
+K3_KERNELS = (K3_WGMMA, "fa_fwd_kernel", K3_RETIRED)
 
 
 def kernel_kind(name: str) -> str:
@@ -1455,7 +1572,7 @@ def kernel_kind(name: str) -> str:
     products (the plain backward recomputes run with TF32 off), other
     matrix products (bf16), reductions, copies and gathers, elementwise."""
     n = name.lower()
-    for kind, keys in (("K3 flash_attention", ("fa_tc_kernel", "fa_fwd_kernel")),
+    for kind, keys in (("K3 flash_attention", K3_KERNELS),
                        ("K4 ssd_intra_chunk", ("ssd_intra_chunk",)),
                        ("matmul float32", ("f32f32", "sgemm")),
                        ("matmul other", ("gemm", "nvjet", "cutlass", "xmma")),
@@ -1645,6 +1762,12 @@ def train_model(arch, n_layers, seq, build, ref, dev, seed):
     if plain_calls["flash_attention_ref"] or plain_calls["ssd_intra_chunk_ref"]:
         problems.append(f"{arch}: plain versions {plain_calls} ran on the "
                         f"training path")
+    k3 = prof.get("k3_device_kernels")
+    per_step = want.get("flash_attention", 0) // TRAIN_STEPS
+    if per_step and (k3 is None or k3.get(K3_WGMMA) != per_step
+                     or k3.get(K3_RETIRED)):
+        problems.append(f"{arch}: the profiled step ran K3 as {k3}, expected "
+                        f"{per_step} {K3_WGMMA} and no {K3_RETIRED}")
     if peak_mem >= CARD_BYTES:
         problems.append(f"{arch}: peak memory {peak_mem} bytes")
     row = {"phase": "train", "arch": arch, "family": cfg.family,
@@ -3120,6 +3243,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also take decode's device time with torch.profiler")
+    ap.add_argument("--k3-against", metavar="DIR",
+                    help="only time bf16 K3 against the one of the checkout "
+                         "at DIR, in turns, and exit")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3151,6 +3277,10 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "built": libs, "build_cached": cached})
+    if args.k3_against:
+        emit(k3_against(args.k3_against, build, fa, dev, rates))
+        print(card, flush=True)
+        return 0
 
     worst = check_kernels(ops, ref, build, dev)
     emit({"phase": "kernels", "equal_to_plain": ["pack_blocks", "pack_cols"],

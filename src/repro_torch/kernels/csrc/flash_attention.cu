@@ -30,28 +30,36 @@
 //
 // Two kernels behind one entry point, chosen by dtype (not a fallback):
 //
-// bfloat16 -- fa_tc_kernel, FlashAttention-2 on the tensor cores.  One
-// block of 4 warps per (q tile of 64 rows, head, batch), heaviest (last) q
-// tiles launched first; each warp owns 16 q rows.  The q tile and a ring of
-// two stages of 64-row k and v tiles are copied into shared memory with
-// cp.async (16 bytes a thread), so the next tile's copies overlap this
-// tile's products; rows past Sq or Sk are zero-filled by the copy (source
-// size 0) and never read.  Shared rows are padded by 16 bytes, an odd
-// number of 16-byte chunks, so the 8 rows an ldmatrix reads fall in 8
-// distinct bank groups.  Each warp loads its q fragments once with ldmatrix
-// and keeps them in registers; S = Q K^T reads K row-major with ldmatrix,
-// O += P V reads V with ldmatrix.trans, both with
-// mma.sync.m16n8k16.bf16 and float32 accumulators.  S is scaled by
-// log2(e)/sqrt(D) in float32 after the product (rounding q * scale to bf16
-// would add an error the reference does not have) and the online softmax
-// runs in the registers of the C fragments: a row lives in one quad of
-// lanes, whose max is taken with two shuffles.  The weights are rounded to
-// bf16 once; the row sum adds those rounded weights (so o is a convex
-// combination of v rows again, exact where a row sees one key), is kept
-// per lane and reduced at the end.  P never touches shared memory: two
-// neighbouring n8 score tiles are the A fragment of the P V product.  At D = 128 shared memory is 85 KB (q, two stages of k and
-// v), so two blocks share an SM.  The wgmma/TMA/warp-specialised design
-// that would reach the full tensor-core rate is later work.
+// bfloat16 -- fa_wgmma_kernel, FlashAttention-3's shape on wgmma and TMA.
+// One block of three warpgroups per (q tile of 128 rows, head, batch),
+// one block per SM; the heaviest (last) q tiles of every head are
+// launched first, so the causal triangle's light tiles fill the tail.
+// - Warpgroup 0 is the producer: after setmaxnreg lowers it to 24
+//   registers, one thread loads the q tile once and then each k and v tile
+//   of 128 rows by TMA into a ring of two stages.  Each stage has a "full"
+//   mbarrier for k and one for v (their bytes complete them) and an
+//   "empty" one that all 256 consumer threads arrive at when done.  TMA
+//   reads the BSHD tensors in place through maps built per call, zero-fills
+//   rows past Sq or Sk, and swizzles each box as wgmma reads it: rows of
+//   128 bytes (boxes of 64 elements) where 64 divides D, else of 32 bytes
+//   (16 elements, one k16 step), so one kernel template serves every D that
+//   is a multiple of 16 up to 128.
+// - Warpgroups 1 and 2 are consumers, 64 q rows each, raised to 240
+//   registers.  S = Q K^T is wgmma m64n128k16 with Q and K from shared
+//   memory (K-major), D / 16 steps, float32 accumulators.  S is scaled by
+//   log2(e)/sqrt(D) in float32 after the product and masked where the tile
+//   straddles an edge of the consumer's rows; the online softmax runs in
+//   the accumulator's registers (a row lives in a quad of lanes: two
+//   shuffles).  P is rounded to bf16 once, in the accumulator's own layout,
+//   which is the register A operand of O += P V (wgmma m64nDk16, eight k16
+//   steps), and the row sum adds those rounded weights.  V is read from
+//   shared memory as an N-major ("transposed") B operand, as it is stored.
+// - The two consumers take turns on the tensor cores (named barriers 1 and
+//   2): each issues its S product only after the other has issued its own,
+//   so one's softmax overlaps the other's products.
+// - The output is rounded to bf16 into the consumer's own q rows, swizzled
+//   as TMA's, and written by a TMA store, which drops rows past Sq.
+// Shared memory at D = 128 is 160 KB: q 32 KB and two stages of k and v.
 //
 // float32 -- fa_fwd_kernel, on the CUDA cores (TF32 would break the 3e-5
 // contract).  One block of 128 threads per (q tile of 64 rows, head,
@@ -68,9 +76,12 @@
 // allocates nothing, and returns cudaGetLastError() (or cudaErrorInvalidValue
 // for a shape it does not serve) so the Python wrapper can raise.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -256,241 +267,280 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ----------------------------------------------------------- bfloat16
 
-constexpr int kTcBQ = 64;              // q rows per block, 16 per warp
-constexpr int kTcThreads = 2 * kTcBQ;  // one warp per 16 q rows
+constexpr int kWgBQ = 128;       // q rows per block, 64 per consumer
+constexpr int kWgBK = 128;       // k rows per tile
+constexpr int kWgThreads = 384;  // the producer warpgroup and two consumers
+constexpr int kStages = 2;       // k/v tiles in flight
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // setmaxnreg
 
 template <int D>
-struct Tc {
-  // bf16 elements per shared row: D plus one 16-byte chunk of padding, so a
-  // row is an odd number of 16-byte chunks and ldmatrix is conflict-free
-  static constexpr int LD = D + 8;
-  static constexpr size_t kSmem =  // q, 2 x (k, v)
-      sizeof(__nv_bfloat16) * (kTcBQ + 4 * kBK) * LD;
+struct Wg {
+  // A tile (128 rows of D bf16) lies in shared memory as D / kBox boxes of
+  // 128 rows x kBox elements, each row kRow bytes, swizzled by TMA: 128-byte
+  // rows where 64 divides D, else 32-byte rows (16 elements: one k16 step).
+  static constexpr int kBox = D % 64 == 0 ? 64 : 16;
+  static constexpr int kRow = 2 * kBox;
+  static constexpr int kLayout = kBox == 64 ? 1 : 3;  // descriptor swizzle
+  static constexpr int kSwizzleMask = kBox == 64 ? 0x70 : 0x10;
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kBoxBytes = 128 * kRow;
+  static constexpr int kTile = kBoxes * kBoxBytes;
+  // q tile, kStages k tiles, kStages v tiles, then the barriers: q full,
+  // k full and v full per stage, empty per stage
+  static constexpr int kK = kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr size_t kSmem = kBar + 8 * (1 + 3 * kStages) + 1024;
 };
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Copy rows row0 .. row0 + ROWS - 1 of one head (row stride `ss` elements)
-// into a [ROWS][Tc<D>::LD] tile; rows at or past `n` are zero-filled, not
-// read.
-template <int D, int ROWS>
-__device__ __forceinline__ void tc_load_tile(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* src,
-                                             long long ss, long long row0,
-                                             long long n, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = tid; c < ROWS * kChunks; c += kTcThreads) {
-    const int r = c / kChunks, ch = c % kChunks;
-    const long long row = row0 + r;
-    const bool ok = row < n;
-    wlk::cp_async16(dst + r * Tc<D>::LD + ch * 8,
-                    ok ? src + row * ss + ch * 8 : src, ok ? 16 : 0);
-  }
+// 2^x, approximate (relative error about 2^-22), subnormal results as 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-fa_tc_kernel(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-             Strides qs, Strides ks, Strides vs, Strides os, int rep,
-             long long sq, long long sk, int causal, long long window,
-             float scale_log2) {
-  constexpr int LD = Tc<D>::LD;
-  constexpr int kTile = kBK * LD;
-  constexpr int KD = D / 16;  // k16 steps over the head dim
-  constexpr int ND = D / 8;   // n8 tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sq_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sk_s = sq_s + kTcBQ * LD;    // [2][kTile]
-  __nv_bfloat16* sv_s = sk_s + 2 * kTile;  // [2][kTile]
+__global__ void __launch_bounds__(kWgThreads, 1)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
+                const __grid_constant__ CUtensorMap km,
+                const __grid_constant__ CUtensorMap vm,
+                const __grid_constant__ CUtensorMap om, int rep, int sq,
+                int sk, int causal, int window, float scale_log2) {
+  using W = Wg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (wlk::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + W::kBar);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
 
+  // blockIdx.x walks the heads fastest, then the q tiles from the last
+  // (heaviest when causal) to the first: every head's heaviest tiles start
+  // before any lighter one
   const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
-  const long long nq = (sq + kTcBQ - 1) / kTcBQ;
-  const long long q0 = (nq - 1 - blockIdx.x) * kTcBQ;  // heaviest tiles first
-  const int h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int hk = h / rep;
+  const int nq = (sq + kWgBQ - 1) / kWgBQ;
+  const int heads = gridDim.x / nq;
+  const int h = blockIdx.x % heads, b = blockIdx.z, hk = h / rep;
+  const int q0 = (nq - 1 - (int)blockIdx.x / heads) * kWgBQ;
 
-  const __nv_bfloat16* qp = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kp = k + b * ks.b + hk * ks.h;
-  const __nv_bfloat16* vp = v + b * vs.b + hk * vs.h;
-  __nv_bfloat16* op = o + b * os.b + h * os.h;
-
-  // The k tiles that run: the TPU kernel's two block-skip tests, as a range.
-  const long long nk = (sk + kBK - 1) / kBK;
-  long long kt_lo = 0, kt_hi = nk;
-  if (causal) kt_hi = min(nk, (q0 + kTcBQ - 1) / kBK + 1);
+  // The k tiles that run, kt_lo <= kt < kt_hi: the TPU kernel's two
+  // block-skip tests for this 128-row q tile (kernels/flash_attention.py,
+  // k_tile_range).
+  const int nk = (sk + kWgBK - 1) / kWgBK;
+  int kt_lo = 0, kt_hi = nk;
+  if (causal) kt_hi = min(nk, (q0 + kWgBQ - 1) / kWgBK + 1);
   if (window) {
-    const long long lo = q0 - window - (kBK - 1);  // tile kt runs iff kt*64 > lo
-    kt_lo = lo < 0 ? 0 : lo / kBK + 1;
+    const int lo = q0 - window - (kWgBK - 1);  // tile kt runs iff kt*128 > lo
+    kt_lo = lo < 0 ? 0 : lo / kWgBK + 1;
   }
+  const int n = max(kt_hi - kt_lo, 0);
 
-  tc_load_tile<D, kTcBQ>(sq_s, qp, qs.s, q0, sq, tid);
-  if (kt_lo < kt_hi) {
-    tc_load_tile<D, kBK>(sk_s, kp, ks.s, kt_lo * kBK, sk, tid);
-    tc_load_tile<D, kBK>(sv_s, vp, vs.s, kt_lo * kBK, sk, tid);
-  }
-  wlk::cp_async_commit();
-  if (kt_lo + 1 < kt_hi) {
-    tc_load_tile<D, kBK>(sk_s + kTile, kp, ks.s, (kt_lo + 1) * kBK, sk, tid);
-    tc_load_tile<D, kBK>(sv_s + kTile, vp, vs.s, (kt_lo + 1) * kBK, sk, tid);
-  }
-  wlk::cp_async_commit();
-
-  uint32_t qf[KD][4];
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};  // rows g and g + 8 of the warp, log2 units
-  float l[2] = {0.f, 0.f};          // this lane's part of the row sums
-  const int wrow = warp * 16;
-
-  for (long long kt = kt_lo; kt < kt_hi; ++kt) {
-    const int stage = (int)((kt - kt_lo) & 1);
-    const __nv_bfloat16* kt_s = sk_s + stage * kTile;
-    const __nv_bfloat16* vt_s = sv_s + stage * kTile;
-    wlk::cp_async_wait<1>();  // this tile's group (and q's) has landed
-    __syncthreads();
-    if (kt == kt_lo) {
-#pragma unroll
-      for (int ks = 0; ks < KD; ++ks)
-        wlk::ldmatrix_x4(qf[ks], sq_s + (wrow + lane % 16) * LD + ks * 16 +
-                                     (lane / 16) * 8);
+  if (tid == 0) {
+    wlk::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      wlk::mbar_init(&k_full[s], 1);
+      wlk::mbar_init(&v_full[s], 1);
+      wlk::mbar_init(&empty[s], 2 * 128);  // every consumer thread
     }
+    wlk::mbar_init_fence();
+  }
+  __syncthreads();
 
-    // S = Q K^T: 16 x 64 per warp, eight n8 tiles
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KD; ++ks) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bf[4];
-        wlk::ldmatrix_x4(bf, kt_s + (np * 16 + (lane / 16) * 8 + lane % 8) * LD +
-                                 ks * 16 + ((lane / 8) % 2) * 8);
-        wlk::mma_bf16_16816(s[2 * np], qf[ks], bf[0], bf[1]);
-        wlk::mma_bf16_16816(s[2 * np + 1], qf[ks], bf[2], bf[3]);
+  if (tid < 128) {
+    // ------------------------------------------------ producer warpgroup
+    wlk::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      wlk::mbar_arrive_expect_tx(q_full, W::kTile);
+      for (int c = 0; c < W::kBoxes; ++c)
+        wlk::tma_load_4d(smem + c * W::kBoxBytes, &qm, q_full, c * W::kBox,
+                         q0, h, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages, ph = (i / kStages) & 1;
+        const int k0 = (kt_lo + i) * kWgBK;
+        wlk::mbar_wait(&empty[s], ph ^ 1);  // both consumers are done with it
+        unsigned char* k_s = smem + W::kK + s * W::kTile;
+        unsigned char* v_s = smem + W::kV + s * W::kTile;
+        wlk::mbar_arrive_expect_tx(&k_full[s], W::kTile);
+        for (int c = 0; c < W::kBoxes; ++c)
+          wlk::tma_load_4d(k_s + c * W::kBoxBytes, &km, &k_full[s],
+                           c * W::kBox, k0, hk, b);
+        wlk::mbar_arrive_expect_tx(&v_full[s], W::kTile);
+        for (int c = 0; c < W::kBoxes; ++c)
+          wlk::tma_load_4d(v_s + c * W::kBoxBytes, &vm, &v_full[s],
+                           c * W::kBox, k0, hk, b);
       }
     }
+  } else {
+    // ---------------------------------------------- consumer warpgroups
+    wlk::setmaxnreg_inc<kConsumerRegs>();
+    const int w = tid / 128 - 1;  // q rows 64w .. 64w + 63 of the tile
+    const int wi = (tid / 32) % 4, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int qlo = q0 + 64 * w;
+    const int row0 = qlo + 16 * wi + g;  // this thread's rows: row0, row0 + 8
+    unsigned char* q_s = smem + 64 * w * W::kRow;  // + c * kBoxBytes: box c
 
-    // scale in float32, mask where the tile straddles an edge
-    const long long k0 = kt * kBK;
-    const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > q0) ||
-                      (window && k0 <= q0 + kTcBQ - 1 - window);
+    float o[D / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};  // rows row0, row0 + 8; log2 units
+    float l[2] = {0.f, 0.f};          // this thread's part of the row sums
+
+    wlk::mbar_wait(q_full, 0);
+    // Ping-pong: consumer w issues its S product after named barrier 1 + w,
+    // which the other consumer arrives at once it has issued its own, so
+    // one consumer's softmax runs beside the other's products.  Consumer 0
+    // goes first; each barrier sees as many arrivals as waits.
+    if (w == 1 && n > 0) wlk::named_arrive(1, 256);
+
+    // One k tile; kMask: the tile straddles an edge of this consumer's rows
+    // (Sk, the diagonal or the window), so its scores are masked.
+    auto tile = [&](int i, auto mask) {
+      constexpr bool kMask = decltype(mask)::value;
+      const int st = i % kStages, ph = (i / kStages) & 1;
+      const int k0 = (kt_lo + i) * kWgBK;
+      const unsigned char* k_s = smem + W::kK + st * W::kTile;
+      const unsigned char* v_s = smem + W::kV + st * W::kTile;
+
+      // S = Q K^T: 64 x 128, float32, D / 16 k16 steps; the first step
+      // ignores s's (undefined) contents
+      float s[64];
+      wlk::mbar_wait(&k_full[st], ph);
+      wlk::named_sync(1 + w, 256);
+      wlk::fence_regs(s);
+      wlk::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
-        if (edge) {
-          const long long qpos = q0 + wrow + g + (e / 2) * 8;
-          const long long kpos = k0 + j * 8 + 2 * t + (e % 2);
-          bool ok = kpos < sk;
-          if (causal) ok = ok && kpos <= qpos;
-          if (window) ok = ok && kpos > qpos - window;
-          if (!ok) x = kNegInf;
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const int off = (ks * 32 / W::kRow) * W::kBoxBytes + ks * 32 % W::kRow;
+        wlk::wgmma_m64n128k16_ss(
+            s, wlk::wgmma_desc(q_s + off, 16, 8 * W::kRow, W::kLayout),
+            wlk::wgmma_desc(k_s + off, 16, 8 * W::kRow, W::kLayout), ks > 0);
+      }
+      wlk::wgmma_commit();
+      if (w == 0 || i + 1 < n) wlk::named_arrive(2 - w, 256);
+      wlk::wgmma_wait<0>();
+      wlk::fence_regs(s);
+
+      // Scale in float32.  A masked tile scales first and puts -1e30 on the
+      // masked scores, so p = 2^(x - m) is exactly 1 there when a whole row
+      // is masked; elsewhere the scale folds into the exponent's fma.
+      if constexpr (kMask) {
+        // keys kpos with lo <= kpos < hi are seen by row r; the thread's
+        // element (j, e) is key k0 + 2t + 8j + e
+        int lo[2], hi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qpos = row0 + 8 * r;
+          lo[r] = (window ? qpos - window + 1 : k0) - (k0 + 2 * t);
+          hi[r] = (causal ? min(qpos + 1, sk) : sk) - (k0 + 2 * t);
         }
-        s[j][e] = x;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int r = x / 2, c = 8 * j + x % 2;
+            s[4 * j + x] = c >= lo[r] && c < hi[r] ? s[4 * j + x] * scale_log2
+                                                   : kNegInf;
+          }
       }
 
-    // online softmax; a row lives in the quad of lanes 4g .. 4g + 3
-    float corr[2];
+      // online softmax; a row lives in the quad of lanes 4g .. 4g + 3.  P
+      // is rounded to bf16 in pairs, already the A operand of P V, and the
+      // row sum adds the rounded weights.
+      uint32_t p[16][2];
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], kMask ? mx : mx * scale_log2);
+        corr[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float x0 = s[4 * j + 2 * r], x1 = s[4 * j + 2 * r + 1];
+          const uint32_t pk =
+              kMask ? wlk::pack_bf16x2(ex2(x0 - m_new), ex2(x1 - m_new))
+                    : wlk::pack_bf16x2(ex2(fmaf(x0, scale_log2, -m_new)),
+                                       ex2(fmaf(x1, scale_log2, -m_new)));
+          sum += __uint_as_float(pk << 16) + __uint_as_float(pk & 0xffff0000u);
+          p[j][r] = pk;
+        }
+        l[r] = l[r] * corr[r] + sum;
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+
+      // O += P V: V (128 keys x D) read N-major, as stored; the k16 step kk
+      // takes P's column blocks 2kk and 2kk + 1
+      wlk::mbar_wait(&v_full[st], ph);
+      wlk::fence_regs(o);
+      wlk::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk) {
+        const uint32_t a[4] = {p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0],
+                               p[2 * kk + 1][1]};
+        wlk::wgmma_m64k16_rs<D>(
+            o, a,
+            wlk::wgmma_desc(v_s + kk * 16 * W::kRow, W::kBoxBytes,
+                            8 * W::kRow, W::kLayout));
+      }
+      wlk::wgmma_commit();
+      wlk::wgmma_wait<0>();
+      wlk::fence_regs(o);
+      wlk::mbar_arrive(&empty[st]);
+    };
+
+    for (int i = 0; i < n; ++i) {
+      const int k0 = (kt_lo + i) * kWgBK;
+      if (k0 + kWgBK > sk || (causal && k0 + kWgBK - 1 > qlo) ||
+          (window && k0 <= qlo + 63 - window))
+        tile(i, std::true_type{});
+      else
+        tile(i, std::false_type{});
+    }
+
+    // o = acc / max(l, 1e-30), rounded to bf16 into this consumer's q rows
+    // (same swizzle as TMA's), then stored by TMA (rows past Sq dropped)
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      corr[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {  // the bf16 weights P V uses, summed
-        s[j][2 * r] = round_bf16(exp2f(s[j][2 * r] - m_new));
-        s[j][2 * r + 1] = round_bf16(exp2f(s[j][2 * r + 1] - m_new));
-        sum += s[j][2 * r] + s[j][2 * r + 1];
-      }
-      l[r] = l[r] * corr[r] + sum;
+      float sum = l[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      inv[r] = 1.f / fmaxf(sum, 1e-30f);
     }
+    wlk::named_sync(3 + w, 128);  // every warp's products have read q
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      acc[j][0] *= corr[0];
-      acc[j][1] *= corr[0];
-      acc[j][2] *= corr[1];
-      acc[j][3] *= corr[1];
-    }
-
-    // O += P V: P's C fragments, rounded to bf16, are the A fragments
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      unsigned char* box = q_s + (col / W::kBox) * W::kBoxBytes;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {
-          wlk::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-          wlk::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-          wlk::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          wlk::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bf[4];
-        wlk::ldmatrix_x4_trans(
-            bf, vt_s + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
-                    dp * 16 + (lane / 16) * 8);
-        wlk::mma_bf16_16816(acc[2 * dp], pa, bf[0], bf[1]);
-        wlk::mma_bf16_16816(acc[2 * dp + 1], pa, bf[2], bf[3]);
+      for (int r = 0; r < 2; ++r) {
+        int off = (16 * wi + g + 8 * r) * W::kRow + (col % W::kBox) * 2;
+        off ^= (off >> 3) & W::kSwizzleMask;
+        *reinterpret_cast<uint32_t*>(box + off) = wlk::pack_bf16x2(
+            o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
       }
     }
-
-    __syncthreads();  // every warp is done with this stage
-    if (kt + 2 < kt_hi) {
-      __nv_bfloat16* kd = sk_s + stage * kTile;
-      __nv_bfloat16* vd = sv_s + stage * kTile;
-      tc_load_tile<D, kBK>(kd, kp, ks.s, (kt + 2) * kBK, sk, tid);
-      tc_load_tile<D, kBK>(vd, vp, vs.s, (kt + 2) * kBK, sk, tid);
+    wlk::fence_proxy_async();
+    wlk::named_sync(3 + w, 128);
+    if (tid % 128 == 0 && qlo < sq) {
+      for (int c = 0; c < W::kBoxes; ++c)
+        wlk::tma_store_4d(&om, q_s + c * W::kBoxBytes, c * W::kBox, qlo, h, b);
+      wlk::tma_store_wait();
     }
-    wlk::cp_async_commit();  // possibly empty, so the group count stays even
-  }
-  wlk::cp_async_wait<0>();  // q's copy, when no tile ran
-
-  // o = acc / max(l, 1e-30), staged in the warp's own q rows, written in
-  // 16-byte rows
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float sum = l[r];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    inv[r] = 1.f / fmaxf(sum, 1e-30f);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    __nv_bfloat16* row0 = sq_s + (wrow + g) * LD + j * 8 + 2 * t;
-    *reinterpret_cast<__nv_bfloat162*>(row0) =
-        __floats2bfloat162_rn(acc[j][0] * inv[0], acc[j][1] * inv[0]);
-    *reinterpret_cast<__nv_bfloat162*>(row0 + 8 * LD) =
-        __floats2bfloat162_rn(acc[j][2] * inv[1], acc[j][3] * inv[1]);
-  }
-  __syncwarp();
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int c = lane; c < 16 * kChunks; c += 32) {
-    const int r = c / kChunks, ch = c % kChunks;
-    const long long row = q0 + wrow + r;
-    if (row < sq)
-      *reinterpret_cast<uint4*>(op + row * os.s + ch * 8) =
-          *reinterpret_cast<const uint4*>(sq_s + (wrow + r) * LD + ch * 8);
   }
 }
 
@@ -515,22 +565,94 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled is a driver function; the build links only the
+// runtime, which hands out the driver's entry points.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a (B, S, heads, D) bf16 tensor with element strides `st`,
+// in place, read or written in boxes of `rows` rows x Wg<D>::kBox elements.
+// A dimension of extent 1 is never stepped; it gets a stride TMA accepts.
+template <int D>
+bool make_map(CUtensorMap* map, const void* base, const Strides& st,
+              long long B, long long S, long long heads, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const long long el[3] = {st.s, st.h, st.b};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i)
+    strides[i] = (cuuint64_t)(dims[i + 1] == 1 ? D : el[i]) * 2;
+  const cuuint32_t box[4] = {(cuuint32_t)Wg<D>::kBox, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                Wg<D>::kBox == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int ND>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         const Strides* st, long long B, long long H,
                         long long KV, long long sq, long long sk, int causal,
                         long long window, cudaStream_t stream) {
   constexpr int D = ND * 16;
-  constexpr size_t smem = Tc<D>::kSmem;
-  auto kernel = fa_tc_kernel<D>;
+  constexpr size_t smem = Wg<D>::kSmem;
+  auto kernel = fa_wgmma_kernel<D>;
+  // setmaxnreg only moves registers within the block: the consumers' rise
+  // is paid by the producer's fall only if the block starts with 168 each.
+  static const cudaError_t regs = [&]() -> cudaError_t {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    return attr.numRegs * kWgThreads >=
+                   kConsumerRegs * 256 + kProducerRegs * 128
+               ? cudaSuccess
+               : cudaErrorInvalidConfiguration;
+  }();
+  if (regs != cudaSuccess) return regs;
+  if (sq > (1 << 30) || sk > (1 << 30) ||
+      (sq + kWgBQ - 1) / kWgBQ * H > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (window >= sq) window = 0;  // no query sees past it: no window
+  CUtensorMap qm, km, vm, om;
+  if (!make_map<D>(&qm, q, st[0], B, sq, H, kWgBQ) ||
+      !make_map<D>(&km, k, st[1], B, sk, KV, kWgBK) ||
+      !make_map<D>(&vm, v, st[2], B, sk, KV, kWgBK) ||
+      !make_map<D>(&om, o, st[3], B, sq, H, 64))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((sq + kTcBQ - 1) / kTcBQ), (unsigned)H, (unsigned)B);
-  kernel<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      st[0], st[1], st[2], st[3], (int)(H / KV), sq, sk, causal, window,
+  dim3 grid((unsigned)((sq + kWgBQ - 1) / kWgBQ * H), 1, (unsigned)B);
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      qm, km, vm, om, (int)(H / KV), (int)sq, (int)sk, causal, (int)window,
       kLog2e / sqrtf((float)D));
   return cudaGetLastError();
 }
@@ -558,8 +680,8 @@ extern "C" {
 // q (B, Sq, H, D), k/v (B, Sk, KV, D), o (B, Sq, H, D); strides: 12 host
 // element strides, (B, S, H) of q, k, v, o in that order, unit stride along
 // D.  dtype 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; every
-// pointer and every (B, S, H) stride in bytes a multiple of 16, for the
-// 16-byte copies).  D a multiple of 16 up to 128; H a multiple of KV; all
+// pointer and every (B, S, H) stride in bytes a multiple of 16, as TMA
+// needs).  D a multiple of 16 up to 128; H a multiple of KV; all
 // extents > 0.
 int wlk_flash_attention(const void* q, const void* k, const void* v, void* o,
                         const long long* strides, long long B, long long H,

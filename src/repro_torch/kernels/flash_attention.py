@@ -6,24 +6,29 @@ bound and its design).  ``kernels.build`` compiles it for ``sm_90a`` at
 first use; ``flash_attention`` here checks a call, allocates the output and
 launches on PyTorch's current stream.  The kernel reads BSHD strides
 directly, so no transpose or padded copy is made; a bfloat16 tensor whose
-pointer or strides are not whole 16-byte chunks (the tensor-core kernel
-copies 16 bytes at a time) is first made contiguous.  ``kernels.ops`` holds
-the public wrapper that dispatches on the tensor's device.
+pointer or strides are not whole 16-byte chunks (TMA's rule), or that
+repeats itself along a dimension with stride 0, is first made contiguous.
+``k_tile_range`` states in Python which k tiles a q tile runs, the skip
+test both kernels implement.  ``kernels.ops`` holds the public wrapper
+that dispatches on the tensor's device.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any
+from typing import Any, Tuple
 
 import torch
 
 from . import build as _build
 
-__all__ = ["NAME", "check_args", "flash_attention"]
+__all__ = ["NAME", "BF16_TILES", "F32_TILES", "check_args", "k_tile_range",
+           "flash_attention"]
 
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BF16_TILES = (128, 128)  # (q rows, k rows) of a tile: fa_wgmma_kernel
+F32_TILES = (64, 64)     # fa_fwd_kernel
 _lib: Any = None
 
 
@@ -72,15 +77,33 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: window {window} < 0")
 
 
+def k_tile_range(q0: int, bq: int, bk: int, sk: int, causal: bool,
+                 window: int) -> Tuple[int, int]:
+    """The k tiles ``lo <= kt < hi`` (of ``bk`` keys) that the q tile of
+    rows ``q0 .. q0 + bq - 1`` runs: the TPU kernel's two block-skip tests,
+    a tile wholly above the diagonal (causal) or wholly outside the window
+    being skipped.  Empty when ``lo >= hi``."""
+    hi = -(-sk // bk)
+    if causal:
+        hi = min(hi, (q0 + bq - 1) // bk + 1)
+    lo = 0
+    if window:
+        edge = q0 - window - (bk - 1)  # tile kt runs iff kt * bk > edge
+        lo = 0 if edge < 0 else edge // bk + 1
+    return lo, hi
+
+
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself where the kernel reads it in place: unit stride along D,
-    and for bfloat16 (16-byte copies) a 16-byte-aligned pointer and (B, S,
-    H) strides of whole 16-byte chunks.  Otherwise a new contiguous copy."""
+    and for bfloat16 (TMA) a 16-byte-aligned pointer and (B, S, H) strides
+    of whole 16-byte chunks, none 0 along an extent above 1.  Otherwise a
+    new contiguous copy."""
     ok = t.stride(-1) == 1
     if t.dtype == torch.bfloat16:
         size = t.element_size()
         ok = ok and t.data_ptr() % 16 == 0 and all(
-            s * size % 16 == 0 for s in t.stride()[:3])
+            s * size % 16 == 0 and (s or n == 1)
+            for s, n in zip(t.stride()[:3], t.shape[:3]))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 

@@ -4,11 +4,12 @@ oracle every CUDA kernel is held against on the card."""
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
 __all__ = ["pack_blocks_ref", "pack_cols_ref", "flash_attention_ref",
-           "ssd_intra_chunk_ref"]
+           "flash_attention_tiles_ref", "ssd_intra_chunk_ref"]
 
 NEG_INF = -1e30
 
@@ -63,6 +64,67 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkrqs,bskd->bqkrd", probs, v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              window: int = 0,
+                              tiles: Optional[Tuple[int, int]] = None
+                              ) -> torch.Tensor:
+    """K3 in its CUDA kernels' order, at their tile sizes: the plain twin
+    of ``flash_attention_ref`` that the kernels are held to tile by tile.
+
+    ``tiles`` = (q rows, k rows), by default the kernel's for q's dtype
+    (``flash_attention.BF16_TILES`` or ``F32_TILES``).  Per q tile, the k
+    tiles ``flash_attention.k_tile_range`` runs, keys past Sk read as zeros:
+    scores in float32 scaled by 1/sqrt(D) after the product, masked to the
+    finite -1e30, an online softmax (running max, the correction of the
+    earlier sum and accumulator), in bfloat16 the weights rounded to bf16
+    once with the row sum adding the rounded weights, the division by
+    max(l, 1e-30) and one rounding to q's dtype."""
+    from . import flash_attention as fa
+
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    rep = h // kv
+    bq, bk = tiles or (fa.BF16_TILES if q.dtype == torch.bfloat16
+                       else fa.F32_TILES)
+    nk = -(-sk // bk)
+    qf = q.float().transpose(1, 2)                              # (b, h, sq, d)
+
+    def keys(t):  # (b, h, nk * bk, d): kv head h // rep, zero rows past Sk
+        t = t.float().transpose(1, 2).repeat_interleave(rep, dim=1)
+        return torch.nn.functional.pad(t, (0, 0, 0, nk * bk - sk))
+
+    kf, vf = keys(k), keys(v)
+    out = torch.zeros_like(qf)
+    for q0 in range(0, sq, bq):
+        qt = qf[:, :, q0:q0 + bq]
+        qpos = torch.arange(q0, q0 + qt.shape[2], device=q.device)[:, None]
+        m = qt.new_full(qt.shape[:3], NEG_INF)
+        l = qt.new_zeros(qt.shape[:3])
+        acc = torch.zeros_like(qt)
+        lo, hi = fa.k_tile_range(q0, bq, bk, sk, causal, window)
+        for kt in range(lo, hi):
+            ks = slice(kt * bk, (kt + 1) * bk)
+            s = qt @ kf[:, :, ks].transpose(-1, -2) / math.sqrt(d)
+            kpos = torch.arange(ks.start, ks.stop, device=q.device)[None, :]
+            mask = kpos < sk
+            if causal:
+                mask = mask & (kpos <= qpos)
+            if window:
+                mask = mask & (kpos > qpos - window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            if q.dtype == torch.bfloat16:
+                p = p.bfloat16().float()
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p @ vf[:, :, ks]
+            m = m_new
+        out[:, :, q0:q0 + bq] = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def ssd_intra_chunk_ref(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,

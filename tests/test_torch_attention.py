@@ -102,11 +102,13 @@ def test_no_fallback_off_the_card():
     ("contiguous", True),
     ("offset", False),       # pointer 2 bytes off the 16-byte grid
     ("d_strided", False),    # non-unit stride along D
+    ("expanded", False),     # stride 0 along heads
 ])
 def test_kernel_layout_reads_in_place_only_on_16_byte_grids(view, in_place):
-    """The bf16 tensor-core kernel copies 16 bytes at a time: the wrapper
-    hands it a view as it is where the pointer and the (B, S, H) strides
-    are whole 16-byte chunks, and a contiguous copy otherwise."""
+    """The bf16 kernel reads through TMA maps: the wrapper hands it a view
+    as it is where the pointer and the (B, S, H) strides are whole 16-byte
+    chunks (none 0 along an extent above 1), and a contiguous copy
+    otherwise."""
     b, s, h, d = 1, 8, 4, 16
     if view == "fused":
         t = torch.zeros((b, s, h + 4, d), dtype=torch.bfloat16)[:, :, :h]
@@ -114,8 +116,10 @@ def test_kernel_layout_reads_in_place_only_on_16_byte_grids(view, in_place):
         t = torch.zeros((b, s, h, d), dtype=torch.bfloat16)
     elif view == "offset":
         t = torch.zeros(b * s * h * d + 1, dtype=torch.bfloat16)[1:].view(b, s, h, d)
-    else:
+    elif view == "d_strided":
         t = torch.zeros((b, s, h, 2 * d), dtype=torch.bfloat16)[..., ::2]
+    else:
+        t = torch.zeros((b, s, 1, d), dtype=torch.bfloat16).expand(b, s, h, d)
     got = fa._kernel_layout(t)
     assert (got is t) == in_place
     assert torch.equal(got, t) and got.stride(-1) == 1

@@ -156,7 +156,17 @@ FA_CASES = [
     (1, 1000, 4, 2, 16, "bfloat16", True, 0),     # tensor-core kernel, D = 16,
     (1, 1000, 4, 2, 64, "bfloat16", True, 0),     # 64 and 96, Sq not a
     (2, 999, 6, 2, 96, "bfloat16", False, 0),     # multiple of 64
+    (1, 1, 4, 4, 64, "bfloat16", True, 0),        # the bf16 kernel's edges:
+    (1, 127, 6, 2, 128, "bfloat16", True, 0),     # Sq 1, 127 and 129 about
+    (1, 129, 8, 1, 128, "bfloat16", True, 0),     # its 128-row tile, rep 8,
+    (1, 1000, 4, 2, 48, "bfloat16", True, 1),     # windows of 1, 128 and 300
+    (1, 1000, 4, 2, 32, "bfloat16", True, 128),   # keys about its 128-key
+    (1, 1000, 4, 2, 112, "bfloat16", True, 300),  # tile, D = 48, 32, 112,
+    (2, 1000, 8, 8, 80, "bfloat16", True, 300),   # batch 2
 ]
+# non-causal, Sq != Sk: (B, Sq, Sk, H, KV, D)
+FA_CROSS_CASES = [(1, 100, 333, 4, 2, 64), (2, 333, 100, 4, 4, 128),
+                  (1, 1, 1000, 8, 1, 128)]
 # Both sides compute in float32 and round to bf16 once, so a bf16 output
 # may differ by one bf16 ulp: at most 2^-7 of its magnitude (rtol), plus an
 # absolute floor for outputs near zero.
@@ -179,6 +189,24 @@ def test_flash_attention_matches_plain_version(cuda, b, s, h, kv, d, dtype,
     assert got.dtype == dt and got.shape == q.shape
     atol, rtol = FA_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    twin = ref.flash_attention_tiles_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), twin.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", FA_CROSS_CASES)
+def test_flash_attention_cross_lengths(cuda, b, sq, sk, h, kv, d):
+    """Non-causal bf16 attention of Sq queries over Sk keys, Sq != Sk."""
+    g = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
+    k = torch.randn((b, sk, kv, d), generator=g, device=cuda).bfloat16()
+    v = torch.randn((b, sk, kv, d), generator=g, device=cuda).bfloat16()
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    atol, rtol = FA_TOL["bfloat16"]
+    for want in (ref.flash_attention_ref(q, k, v, causal=False),
+                 ref.flash_attention_tiles_ref(q, k, v, causal=False)):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
 
 
 def test_flash_attention_reads_fused_views_in_place(cuda):
