@@ -2,10 +2,13 @@
 
     python3 chip_smoke.py [--seed N] [--profile]
     python3 chip_smoke.py --k3-against DIR
+    python3 chip_smoke.py --k4-against DIR
 
-The second form builds only the kernels and times bf16 K3 against the
-one of another checkout at DIR (unpacked, e.g. with ``git archive``, into
-a directory ``.gitignore`` lists), the two in turns at phase 7's shapes.
+The other forms build only the kernels and time bf16 K3 (or K4) against
+the one of another checkout at DIR (unpacked, e.g. with ``git archive``,
+into a directory ``.gitignore`` lists), the two in turns at phase 7's
+shapes (K4: also at the training shape), with ptxas's report on this
+checkout's kernels.
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together) and then, each phase printing one
@@ -751,8 +754,19 @@ SSD_CASES = [  # (B, S, H, P, G, N, chunk)
     (1, 600, 6, 80, 2, 32, 256),      # P > 64: subsets of 4 heads
     (1, TIME_S, 80, 64, 1, 128, 256), # the serving shape
     (2, TIME_S, 80, 64, 1, 128, 256), # the training shape
+    (1, 1000, 8, 64, 1, 128, 200),    # q = 200: a y tile of 8 rows
+    (1, 700, 5, 20, 1, 12, 320),      # P, N off the 8 grid; q past 256 columns j
+    (2, 300, 3, 6, 1, 10, 128),       # P, N off the 4 grid: the padded copy
+    (1, 2000, 3, 128, 3, 128, 1024),  # q = 1024: four windows; P = 128
 ]
+# (B, S, H, P, G, N, chunk), x's and dA's scales: x large enough that the lo
+# parts of x^T (S o L)^T's operands exceed the 2e-4 floor, and dA so negative
+# that L underflows to 0 within a chunk (exp(cs_i - cs_j) below 2^-149)
+SSD_SCALED_CASES = {"large |x|": ((1, 1000, 16, 64, 1, 128, 256), 2.0, 0.1),
+                    "L underflows": ((1, 1000, 16, 64, 1, 128, 256), 1.0, 10.0)}
 SSD_FAMILY_CASES = {"zamba2 serving": (1, TIME_S, 80, 64, 1, 64, 256)}
+SSD_TOL = 2e-4               # K4 against its plain version: tests/test_kernels.py
+SSD_TWIN_TOL = 1e-4          # ... and against its twin in the kernel's arithmetic
 
 
 def fa_inputs(dev, b, s, h, kv, d, dtype, seed):
@@ -762,14 +776,15 @@ def fa_inputs(dev, b, s, h, kv, d, dtype, seed):
             torch.randn((b, s, kv, d), generator=g, device=dev).to(dtype))
 
 
-def ssd_inputs(dev, b, s, h, p, g_, n, chunk, seed):
+def ssd_inputs(dev, b, s, h, p, g_, n, chunk, seed, x_scale=1.0, dA_scale=0.1):
     """Chunked (B, NC, q, ...) inputs of the intra-chunk step, S padded to
-    whole chunks with zeros as the wrapper pads; dA = -|N(0,1)| * 0.1."""
+    whole chunks with zeros as the wrapper pads; x = N(0,1) * x_scale, dA =
+    -|N(0,1)| * dA_scale."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = min(chunk, s)
     nc = -(-s // q)
-    x = torch.randn((b, s, h, p), generator=gen, device=dev)
-    dA = -torch.randn((b, s, h), generator=gen, device=dev).abs() * 0.1
+    x = torch.randn((b, s, h, p), generator=gen, device=dev) * x_scale
+    dA = -torch.randn((b, s, h), generator=gen, device=dev).abs() * dA_scale
     Bm = torch.randn((b, s, g_, n), generator=gen, device=dev)
     Cm = torch.randn((b, s, g_, n), generator=gen, device=dev)
 
@@ -798,7 +813,9 @@ def check_model_kernels(ops, ref, build, dev):
                                "max_share_of_limit_twin": 0.0,
                                "serving_shape": {}, "family_shapes": {}},
            "ssd_intra_chunk": {"cases": 0, "max_abs_err": 0.0,
-                               "family_shapes": {}}}
+                               "max_share_of_limit": 0.0,
+                               "max_share_of_limit_twin": 0.0,
+                               "family_shapes": {}, "scaled_shapes": {}}}
     cases = [(c, False, None) for c in FA_CASES] + [
         ((b, s, h, kv, d, torch.bfloat16, causal, 0), True, None)
         for b, s, h, kv, d, causal in FA_FUSED_CASES] + [
@@ -847,25 +864,41 @@ def check_model_kernels(ops, ref, build, dev):
         elif (b, s, h, kv, d) == (1, TIME_S, 24, 8, 128):
             r["serving_shape"][str(dt).removeprefix("torch.")] = err
         del got, want, twin, diff
-    ssd_cases = [(c, None) for c in SSD_CASES] + [
-        (c, label) for label, c in SSD_FAMILY_CASES.items()]
-    for i, ((b, s, h, p, g_, n, chunk), label) in enumerate(ssd_cases):
-        args = ssd_inputs(dev, b, s, h, p, g_, n, chunk, 200 + i)
-        y, st = launched("ssd_intra_chunk", lambda: ops.ssd_intra_chunk(*args))
-        y_ref, st_ref = ref.ssd_intra_chunk_ref(*args)
-        err = max((y - y_ref).abs().max().item(), (st - st_ref).abs().max().item())
-        if not (torch.allclose(y, y_ref, atol=2e-4, rtol=2e-4)
-                and torch.allclose(st, st_ref, atol=2e-4, rtol=2e-4)):
+    def share(got, want, tol):
+        return max(((g - w).abs() / (tol + tol * w.abs())).max().item()
+                   for g, w in zip(got, want))
+
+    ssd_cases = [(c, None, (1.0, 0.1)) for c in SSD_CASES] + [
+        (c, label, (1.0, 0.1)) for label, c in SSD_FAMILY_CASES.items()] + [
+        (c, label, scales) for label, (c, *scales) in SSD_SCALED_CASES.items()]
+    for i, ((b, s, h, p, g_, n, chunk), label, scales) in enumerate(ssd_cases):
+        args = ssd_inputs(dev, b, s, h, p, g_, n, chunk, 200 + i, *scales)
+        got = launched("ssd_intra_chunk", lambda: ops.ssd_intra_chunk(*args))
+        want = ref.ssd_intra_chunk_ref(*args)
+        twin = ref.ssd_intra_chunk_tiles_ref(*args)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        sh, sh_twin = share(got, want, SSD_TOL), share(got, twin, SSD_TWIN_TOL)
+        if sh > 1 or sh_twin > 1:
             raise RuntimeError(f"ssd_intra_chunk differs from its plain version "
-                               f"(max abs err {err}): {b, s, h, p, g_, n, chunk}")
+                               f"(max abs err {err}, {sh} of the limit; "
+                               f"{sh_twin} of the twin's): "
+                               f"{b, s, h, p, g_, n, chunk} scales {scales}")
         r = res["ssd_intra_chunk"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["max_share_of_limit"] = max(r["max_share_of_limit"], sh)
+        r["max_share_of_limit_twin"] = max(r["max_share_of_limit_twin"], sh_twin)
         r["cases"] += 1
-        if label is not None:
-            r["family_shapes"][label] = {"shape": [b, s, h, p, g_, n, chunk],
-                                         "max_abs_err": err}
+        row = {"shape": [b, s, h, p, g_, n, chunk], "max_abs_err": err,
+               "share_of_limit": sh, "share_of_limit_twin": sh_twin}
+        if label in SSD_FAMILY_CASES:
+            r["family_shapes"][label] = row
+        elif label is not None:
+            r["scaled_shapes"][label] = {**row, "x_scale": scales[0],
+                                         "dA_scale": scales[1]}
         elif (b, s, n) == (1, TIME_S, 128):
             r["max_abs_err_serving_shape"] = err
+            r["share_of_limit_serving_shape"] = sh
+        del got, want, twin
     return res
 
 
@@ -1193,19 +1226,36 @@ def ssd_work(args):
     return flops, moved
 
 
+def ssd_bounds(args, rates):
+    """K4's least times on the card for chunked ``args``: at a third of the
+    TF32 tensor-core rate (3xTF32, which keeps the float32 contract; TF32 at
+    half the bf16 rate of ``launch.hlo.PEAKS``), and at the float32 rate of
+    the CUDA cores (the bound before the tensor cores), each the larger of
+    the operations' and the bytes' time: (ms, by), (ms, by), operations,
+    bytes, the 3xTF32 rate."""
+    bw, bf16_rate, f32_rate = rates
+    flops, moved = ssd_work(args)
+    tc_rate = bf16_rate / 2 / 3
+
+    def bound(rate):
+        return (max(flops / rate, moved / bw) * 1e3,
+                "operations" if flops / rate > moved / bw else "bytes")
+
+    return bound(tc_rate), bound(f32_rate), flops, moved, tc_rate
+
+
 def ssd_timing(ssd, ref, args, rates, flush):
     """K4 on chunked float32 inputs, cold L2: its time and its plain
-    version's beside the bound (no single PyTorch call computes it)."""
-    bw, _, f32_rate = rates
-    flops, moved = ssd_work(args)
+    version's beside both bounds (no single PyTorch call computes it)."""
+    (bound, by), (f32_bound, f32_by), flops, moved, tc_rate = ssd_bounds(args, rates)
     ms = time_ms(lambda: ssd.ssd_intra_chunk(*args), flush)
-    bound = max(flops / f32_rate, moved / bw) * 1e3
     return {"ms": ms,
             "plain_ms": time_ms(lambda: ref.ssd_intra_chunk_ref(*args), flush),
-            "bound_ms": bound,
-            "bound_by": "operations" if flops / f32_rate > moved / bw else "bytes",
-            "share_of_bound": bound / ms,
-            "flops": flops, "bytes": moved, "peak_flops": f32_rate,
+            "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms,
+            "f32_core_bound_ms": f32_bound, "f32_core_bound_by": f32_by,
+            "share_of_f32_core_bound": f32_bound / ms,
+            "flops": flops, "bytes": moved, "peak_flops": tc_rate,
+            "peak_flops_f32_core": rates[2],
             "library_ms": None,
             "library": "none: no single PyTorch call computes the SSD intra-chunk step",
             "tflops": flops / ms / 1e9}
@@ -1252,46 +1302,104 @@ def time_model_kernels(ref, fa, ssd, dev, rates, launches, errs):
     return out
 
 
+def ptxas_report(build, name, pattern):
+    """ptxas's report on this checkout's ``csrc/<name>.cu``: per kernel
+    whose mangled name ``pattern`` matches (its groups name it), registers,
+    spill bytes, and whether ptxas serialised any wgmma (C7512: too few
+    registers, C7520: a divergent path)."""
+    report = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(build.BUILD_DIR / f"lib{name}-ptxas.so"),
+         str(build.source_path(name))],
+        check=True, capture_output=True, text=True)
+    out, fn = {}, None
+    for line in (report.stdout + report.stderr).splitlines():
+        named = re.search(pattern, line)
+        key = "<".join(named.groups()) + ">" if named else None
+        if "Compiling entry function" in line:
+            fn = key
+            out.setdefault(fn, {"serialized_wgmma": []})
+        elif re.search(r"C75(12|20)", line) and key:
+            code = re.search(r"C75(12|20)", line).group(0)
+            entry = out.setdefault(key, {"serialized_wgmma": []})
+            if code not in entry["serialized_wgmma"]:
+                entry["serialized_wgmma"].append(code)
+        elif fn and "spill stores" in line:
+            out[fn]["spill_bytes"] = int(
+                line.split("bytes spill stores")[0].split(",")[-1])
+        elif fn and "Used" in line and "registers" in line:
+            out[fn]["registers"] = int(line.split("Used ")[1].split()[0])
+    return out
+
+
+def build_other(build, other, name):
+    """``csrc/<name>.cu`` of the checkout at ``other``, built here with this
+    checkout's ``nvcc`` flags: (its library, the build's seconds)."""
+    import ctypes
+
+    src = os.path.join(other, "src", "repro_torch", "kernels", "csrc", f"{name}.cu")
+    path = build.BUILD_DIR / f"lib{name}-against.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(path), src],
+                   check=True, capture_output=True)
+    return ctypes.CDLL(str(path)), time.perf_counter() - t0
+
+
+def k4_against(other, build, ssd, ref, dev, rates):
+    """``--k4-against DIR``: K4 of this checkout against the one of the
+    checkout at DIR (its ``csrc/ssd_scan.cu`` built here with the same
+    ``nvcc`` flags, called through this checkout's wrapper), timed in turns
+    (DIR's, this, this, DIR's) at mamba2-2.7b's and zamba2's serving shapes
+    and at the training shape, cold L2, beside both bounds."""
+    theirs, build_s = build_other(build, other, "ssd_scan")
+    ours = ssd._library()
+    theirs.wlk_ssd_intra_chunk.argtypes = ours.wlk_ssd_intra_chunk.argtypes
+    theirs.wlk_ssd_intra_chunk.restype = ours.wlk_ssd_intra_chunk.restype
+
+    def run(lib, args):
+        ssd._lib = lib
+        try:
+            return ssd.ssd_intra_chunk(*args)
+        finally:
+            ssd._lib = ours
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    shapes = {"mamba serving": (1, TIME_S, 80, 64, 1, 128, 256),
+              "zamba2 serving": SSD_FAMILY_CASES["zamba2 serving"],
+              "training": (TRAIN_BATCH, TRAIN_SEQ, 80, 64, 1, 128, 256)}
+    rows = {}
+    for label, c in shapes.items():
+        args = ssd_inputs(dev, *c, 9)
+        diff = max((a - b).abs().max().item()
+                   for a, b in zip(run(theirs, args), run(ours, args)))
+        ms = [time_ms(lambda: run(lib, args), flush)
+              for lib in (theirs, ours, ours, theirs)]
+        (bound, by), (f32_bound, _), _, _, _ = ssd_bounds(args, rates)
+        rows[label] = {"shape": list(c), "against_ms": [ms[0], ms[3]],
+                       "ms": [ms[1], ms[2]], "bound_ms": bound, "bound_by": by,
+                       "share_of_bound": bound / min(ms[1:3]),
+                       "f32_core_bound_ms": f32_bound,
+                       "share_of_f32_core_bound": f32_bound / min(ms[1:3]),
+                       "max_abs_diff": diff}
+    return {"phase": "k4_against", "against": other, "build_s": build_s,
+            "ptxas": ptxas_report(build, "ssd_scan", r"(ssd_\w+_kernel)ILi(\d+)E"),
+            "shapes": rows}
+
+
 def k3_against(other, build, fa, dev, rates):
     """``--k3-against DIR``: bf16 K3 of this checkout against the one of
     the checkout at DIR (its ``csrc/flash_attention.cu`` built here with
     the same ``nvcc`` flags, called through this checkout's wrapper), timed
     in turns (DIR's, this, this, DIR's) at phase 7's bf16 shapes, cold L2,
     beside SDPA and the bound."""
-    import ctypes
-
-    src = os.path.join(other, "src", "repro_torch", "kernels", "csrc",
-                       "flash_attention.cu")
-    path = build.BUILD_DIR / "libflash_attention-against.so"
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(path), src],
-                   check=True, capture_output=True)
-    build_s = time.perf_counter() - t0
+    theirs, build_s = build_other(build, other, "flash_attention")
     # ptxas's report on this checkout's kernels: registers, spills, and
-    # whether it serialized any wgmma (C7512)
-    report = subprocess.run(
-        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-         str(build.BUILD_DIR / "libflash_attention-ptxas.so"),
-         str(build.source_path("flash_attention"))],
-        check=True, capture_output=True, text=True)
-    ptxas, fn = {}, None
-    for line in (report.stdout + report.stderr).splitlines():
-        named = re.search(r"(fa_\w+_kernel)ILi(\d+)E", line)
-        if "Compiling entry function" in line:
-            fn = "<".join(named.groups()) + ">"
-            ptxas[fn] = {"c7512": False}
-        elif "C7512" in line:
-            ptxas["<".join(named.groups()) + ">"]["c7512"] = True
-        elif fn and "spill stores" in line:
-            ptxas[fn]["spill_bytes"] = int(
-                line.split("bytes spill stores")[0].split(",")[-1])
-        elif fn and "Used" in line and "registers" in line:
-            ptxas[fn]["registers"] = int(line.split("Used ")[1].split()[0])
+    # whether it serialized any wgmma
+    ptxas = ptxas_report(build, "flash_attention", r"(fa_\w+_kernel)ILi(\d+)E")
     ours = fa._library()
-    theirs = ctypes.CDLL(str(path))
     theirs.wlk_flash_attention.argtypes = ours.wlk_flash_attention.argtypes
-    theirs.wlk_flash_attention.restype = ctypes.c_int
+    theirs.wlk_flash_attention.restype = ours.wlk_flash_attention.restype
 
     def run(lib, q, k, v, window):
         fa._lib = lib
@@ -3246,6 +3354,9 @@ def main() -> int:
     ap.add_argument("--k3-against", metavar="DIR",
                     help="only time bf16 K3 against the one of the checkout "
                          "at DIR, in turns, and exit")
+    ap.add_argument("--k4-against", metavar="DIR",
+                    help="only time K4 against the one of the checkout at "
+                         "DIR, in turns, and exit")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3277,8 +3388,11 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "built": libs, "build_cached": cached})
-    if args.k3_against:
-        emit(k3_against(args.k3_against, build, fa, dev, rates))
+    if args.k3_against or args.k4_against:
+        if args.k3_against:
+            emit(k3_against(args.k3_against, build, fa, dev, rates))
+        if args.k4_against:
+            emit(k4_against(args.k4_against, build, ssd, ref, dev, rates))
         print(card, flush=True)
         return 0
 
@@ -3322,7 +3436,8 @@ def main() -> int:
     emit({"phase": "kernels_model",
           "tolerance": {"flash_attention_f32": FA_TOL[torch.float32],
                         "flash_attention_bf16": FA_TOL[torch.bfloat16],
-                        "ssd_intra_chunk": 2e-4},
+                        "ssd_intra_chunk": SSD_TOL,
+                        "ssd_intra_chunk_twin": SSD_TWIN_TOL},
           **errs})
 
     serve_launches = {}   # kernel -> {arch: launches over its 8 requests}

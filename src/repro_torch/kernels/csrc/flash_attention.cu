@@ -565,40 +565,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled is a driver function; the build links only the
-// runtime, which hands out the driver's entry points.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The TMA map of a (B, S, heads, D) bf16 tensor with element strides `st`,
 // in place, read or written in boxes of `rows` rows x Wg<D>::kBox elements.
 // A dimension of extent 1 is never stepped; it gets a stride TMA accepts.
 template <int D>
 bool make_map(CUtensorMap* map, const void* base, const Strides& st,
               long long B, long long S, long long heads, int rows) {
-  const EncodeTiled encode = encode_tiled();
+  const wlk::EncodeTiled encode = wlk::encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
                               (cuuint64_t)heads, (cuuint64_t)B};

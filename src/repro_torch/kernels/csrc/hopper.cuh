@@ -2,10 +2,7 @@
 // source that includes it is rebuilt when it changes (kernels/build.py
 // hashes csrc/*.cuh).
 //
-// sm_80 instructions that Hopper keeps: 16-byte asynchronous copies into
-// shared memory (cp.async; K4 stages its operands with them).
-//
-// sm_90a instructions (K3 in bf16):
+// sm_90a instructions (K3 in bf16, K4 in 3xTF32):
 // - mbarrier: a 64-bit barrier in shared memory whose phase completes when
 //   its expected arrivals have arrived and the bytes announced with
 //   expect_tx have landed; a waiter names the parity of the phase it waits
@@ -31,6 +28,13 @@
 // 2k + 1, rounded to bf16 and packed in pairs, are the A operand of the
 // k16 step k of a second product.
 //
+// In TF32 (m64nNk8) the A operand in registers is per warp mma.m16n8k8's:
+// four .b32, (row g, k t), (row g + 8, k t), (row g, k t + 4), (row g + 8,
+// k t + 4) -- other columns than the accumulator's, so an accumulator is
+// not an A operand as it stands.  A TF32 operand in shared memory must be
+// K-major: wgmma transposes only 16-bit types.  A k8 step of TF32 is 32
+// bytes, as a k16 step of bf16, so the descriptors below serve both.
+//
 // Shared-memory matrix descriptor: start address >> 4 (bits 0-13), leading
 // byte offset (LBO) >> 4 (16-29), stride byte offset (SBO) >> 4 (32-45),
 // layout (62-63: 1 = 128-byte swizzle, 3 = 32-byte swizzle).  With a
@@ -45,7 +49,9 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace wlk {
@@ -54,33 +60,32 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// ------------------------------------------------------------ cp.async
-
-// 16 bytes global -> shared, bypassing L1.  src_bytes < 16 fills the rest
-// of the 16 with zeros; with src_bytes = 0 nothing is read from `src`.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups of this thread are still pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Two floats rounded to nearest even into one .b32 of bf16 (lo in the low
 // half, the first element of an A fragment pair).
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ----------------------------------------------------------------- TF32
+
+// a rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero; the largest floats to inf), in a float whose low 13 mantissa
+// bits are zero: half a TF32 ulp added to the magnitude's bits, then the
+// low bits cleared.  Two integer operations, where the conversion compiles
+// to a longer sequence that also tests for NaN; a NaN whose payload lies
+// only in the low 13 bits becomes inf here.
+__device__ __forceinline__ float tf32_rna(float a) {
+  return __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xFFFFE000u);
+}
+
+// 3xTF32: a = hi + lo, both TF32, to about 2^-22 of |a|.  The products
+// hi hi' + hi lo' + lo hi' then keep float32's accuracy (lo lo' is dropped).
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  const float h = tf32_rna(a);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(tf32_rna(a - h));
 }
 
 // ------------------------------------------------------------ mbarrier
@@ -405,6 +410,56 @@ __device__ __forceinline__ void wgmma_m64k16_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (+)= a b, m64n64k8 in TF32: A (64 x 8) in registers (the mma.m16n8k8
+// TF32 A fragment of each warp's 16 rows), B (8 x 64) K-major in shared
+// memory; float32 sums, which the tensor cores round toward zero at each
+// instruction.  scale_d = 0 ignores d's previous contents.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WLK_F8(d, 0), WLK_F8(d, 8),
+        WLK_F8(d, 16), WLK_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 #undef WLK_F8
+
+// ------------------------------------------------------------ TMA maps
+
+// cuTensorMapEncodeTiled is a driver function; the build links only the
+// runtime, which hands out the driver's entry points.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
 
 }  // namespace wlk

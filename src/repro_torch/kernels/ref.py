@@ -9,9 +9,11 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["pack_blocks_ref", "pack_cols_ref", "flash_attention_ref",
-           "flash_attention_tiles_ref", "ssd_intra_chunk_ref"]
+           "flash_attention_tiles_ref", "ssd_intra_chunk_ref", "round_tf32",
+           "split_tf32", "seq_cumsum", "ssd_intra_chunk_tiles_ref"]
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 
 def pack_blocks_ref(src: torch.Tensor, tile_offsets: torch.Tensor,
@@ -157,3 +159,88 @@ def ssd_intra_chunk_ref(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     xwg = (xf * decay_last[..., None]).reshape(b, nc, q, g, r, p)
     st = torch.einsum("bcjgn,bcjgrp->bcgrnp", Bf, xwg).reshape(b, nc, h, n, p)
     return y, st
+
+
+def round_tf32(a: torch.Tensor) -> torch.Tensor:
+    """``a`` (float32) rounded to TF32, as ``cvt.rna.tf32.f32``: the low 13
+    mantissa bits cleared, to nearest with ties away from zero (a carry may
+    enter the exponent: the largest floats round to inf); NaN stays NaN."""
+    a = a.float().contiguous()
+    bits = (a.view(torch.int32) + 0x1000) & -0x2000
+    return torch.where(torch.isnan(a), a, bits.view(torch.float32))
+
+
+def split_tf32(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """3xTF32's split of float32 ``a``: (hi, lo) = (rna(a), rna(a - hi))."""
+    hi = round_tf32(a)
+    return hi, round_tf32(a.float() - hi)
+
+
+def seq_cumsum(a: torch.Tensor) -> torch.Tensor:
+    """Inclusive sums along the last dimension, row after row in float32:
+    K4's order, and ``torch.cumsum``'s along a chunk on the card (on the
+    CPU ``torch.cumsum`` sums float32 in double)."""
+    a = a.float()
+    out = torch.empty_like(a)
+    carry = a.new_zeros(a.shape[:-1])
+    for k in range(a.shape[-1]):
+        carry = carry + a[..., k]
+        out[..., k] = carry
+    return out
+
+
+def ssd_intra_chunk_tiles_ref(x: torch.Tensor, dA: torch.Tensor,
+                              Bm: torch.Tensor, Cm: torch.Tensor):
+    """K4 in its CUDA kernel's order and arithmetic: the plain twin of
+    ``ssd_intra_chunk_ref`` that the kernel is held to tile by tile.
+
+    The cumulative sums by ``seq_cumsum``; every product on TF32 operands
+    in float32 sums, hi hi' + lo hi' + hi lo' of ``split_tf32``'s parts.  Per 64-row tile i of y the j tiles 0 .. i in order,
+    each adding ((C_i B_j^T) o L) x_j, L a select of exp(cs_i - cs_j); per
+    j tile the states add B_j^T (w x_j), w = exp(cs_last - cs) (0 past q).
+    L's exp is the kernel's ``__expf``: 2^(x log2 e), the product rounded
+    to float32.
+    Rows past q read as zeros.  Returns (y (B,NC,q,H,P), states
+    (B,NC,H,N,P)), float32."""
+    from .ssd_scan import TILE
+
+    b, nc, q, h, p = x.shape
+    r = h // Bm.shape[3]
+    nt = -(-q // TILE)
+    pad = nt * TILE - q
+
+    def heads(t):  # (b, nc, h, nt * TILE, w): per head, zero rows past q
+        t = t.float()
+        if t.shape[3] != h:
+            t = t.repeat_interleave(r, dim=3)
+        return torch.nn.functional.pad(t.transpose(2, 3), (0, 0, 0, pad))
+
+    def mm(a, b_):
+        ah, al = split_tf32(a)
+        bh, bl = split_tf32(b_)
+        return ah @ bh + al @ bh + ah @ bl
+
+    xh, Bh, Ch = heads(x), heads(Bm), heads(Cm)
+    cs = seq_cumsum(dA.float().transpose(2, 3))                   # (b,nc,h,q)
+    w = torch.exp(cs[..., -1:] - cs)
+    cs = torch.nn.functional.pad(cs, (0, pad))
+    wx = xh * torch.nn.functional.pad(w, (0, pad))[..., None]
+    rows = torch.arange(nt * TILE, device=x.device)
+    y = torch.zeros_like(xh)
+    st = xh.new_zeros((b, nc, h, Bm.shape[4], p))
+    for jt in range(nt):
+        js = slice(jt * TILE, (jt + 1) * TILE)
+        st = st + mm(Bh[..., js, :].transpose(-1, -2), wx[..., js, :])
+    for it in range(nt):
+        i_s = slice(it * TILE, (it + 1) * TILE)
+        acc = torch.zeros_like(xh[..., i_s, :])
+        for jt in range(it + 1):
+            js = slice(jt * TILE, (jt + 1) * TILE)
+            s = mm(Ch[..., i_s, :], Bh[..., js, :].transpose(-1, -2))
+            keep = ((rows[i_s, None] >= rows[None, js])
+                    & (rows[i_s, None] < q))
+            arg = (cs[..., i_s, None] - cs[..., None, js]) * LOG2E
+            sl = torch.where(keep, s * torch.exp2(arg), 0.0)
+            acc = acc + mm(sl, xh[..., js, :])
+        y[..., i_s, :] = acc
+    return y[..., :q, :].transpose(2, 3).contiguous(), st

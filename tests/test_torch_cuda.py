@@ -241,24 +241,30 @@ SSD_CASES = [
     (1, 600, 16, 32, 4, 64, 128),     # G = 4: one short subset per group
     (1, 256, 6, 80, 2, 32, 256),      # P > 64: subsets of 4 heads
     (1, 640, 4, 64, 1, 32, 320),      # q = 320: S in two windows
+    (1, 600, 8, 64, 1, 128, 200),     # q = 200: a y tile of 8 rows
+    (1, 700, 5, 20, 1, 12, 350),      # P and N off the 8 grid, q = 350
+    (2, 300, 3, 6, 1, 10, 128),       # P and N off the 4 grid: padded copies
 ]
+SSD_TWIN_TOL = 1e-4   # chip_smoke.py: K4 against ref.ssd_intra_chunk_tiles_ref
 
 
-def _ssd_inputs(cuda, b, s, h, p, g, n, seed):
+def _ssd_inputs(cuda, b, s, h, p, g, n, seed, x_scale=1.0, dA_scale=0.1):
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    x = torch.randn((b, s, h, p), generator=gen, device=cuda)
-    dA = -torch.randn((b, s, h), generator=gen, device=cuda).abs() * 0.1
+    x = torch.randn((b, s, h, p), generator=gen, device=cuda) * x_scale
+    dA = -torch.randn((b, s, h), generator=gen, device=cuda).abs() * dA_scale
     Bm = torch.randn((b, s, g, n), generator=gen, device=cuda)
     Cm = torch.randn((b, s, g, n), generator=gen, device=cuda)
     s0 = torch.randn((b, h, n, p), generator=gen, device=cuda)
     return x, dA, Bm, Cm, s0
 
 
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
-def test_ssd_intra_chunk_matches_plain_version(cuda, b, s, h, p, g, n, chunk):
+def _check_intra_chunk(cuda, b, s, h, p, g, n, chunk, **scales):
+    """K4 on whole chunks of seeded inputs: one launch, within 2e-4 of the
+    plain version and within SSD_TWIN_TOL of its twin in the kernel's
+    arithmetic."""
     q = min(chunk, s)
     nc = s // q
-    x, dA, Bm, Cm, _ = _ssd_inputs(cuda, b, nc * q, h, p, g, n, s)
+    x, dA, Bm, Cm, _ = _ssd_inputs(cuda, b, nc * q, h, p, g, n, s, **scales)
     args = (x.reshape(b, nc, q, h, p), dA.reshape(b, nc, q, h),
             Bm.reshape(b, nc, q, g, n), Cm.reshape(b, nc, q, g, n))
     before = build.launch_counts(["ssd_intra_chunk"])["ssd_intra_chunk"]
@@ -268,6 +274,23 @@ def test_ssd_intra_chunk_matches_plain_version(cuda, b, s, h, p, g, n, chunk):
     y_ref, st_ref = ref.ssd_intra_chunk_ref(*args)
     torch.testing.assert_close(y, y_ref, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(st, st_ref, atol=2e-4, rtol=2e-4)
+    y_twin, st_twin = ref.ssd_intra_chunk_tiles_ref(*args)
+    torch.testing.assert_close(y, y_twin, atol=SSD_TWIN_TOL, rtol=SSD_TWIN_TOL)
+    torch.testing.assert_close(st, st_twin, atol=SSD_TWIN_TOL, rtol=SSD_TWIN_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
+def test_ssd_intra_chunk_matches_plain_version(cuda, b, s, h, p, g, n, chunk):
+    _check_intra_chunk(cuda, b, s, h, p, g, n, chunk)
+
+
+@pytest.mark.parametrize("x_scale, dA_scale", [(2.0, 0.1), (1.0, 10.0)],
+                         ids=["large-x", "L-underflows"])
+def test_ssd_intra_chunk_scaled_inputs(cuda, x_scale, dA_scale):
+    """x large enough that the lo parts of the 3xTF32 split exceed the
+    2e-4 floor; dA so negative that L underflows to 0 within a chunk."""
+    _check_intra_chunk(cuda, 1, 512, 8, 64, 1, 128, 256, x_scale=x_scale,
+                       dA_scale=dA_scale)
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
