@@ -33,7 +33,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 from ..analysis.lockcheck import make_lock
 from ..obs.critical import attribute, format_report
 from ..obs.export import export_trace
-from ..obs.recorder import SpanRecorder, TraceConfig
+from ..obs.recorder import SpanRecorder, TraceConfig, set_last_run_spans
 from . import actions as actions_mod
 from .channel import Channel, PrefetchPool
 from .comm import TaskComm, pop_comm, push_comm
@@ -1004,6 +1004,7 @@ class Wilkins:
                     ch.set_tracer(None)
                 sup.tracer = None
                 spans = tracer.spans()
+                set_last_run_spans(spans)   # obs.last_run_spans()
                 report.trace_spans = len(spans)
                 report.flight_recorder = tracer.dumps()
                 report.critical_path = attribute(spans)

@@ -102,6 +102,9 @@ class VOL:
         self._unserved: List[File] = []
         self._broadcast_log: List[str] = []
         self._open_files: Dict[str, File] = {}
+        # filename -> monotonic creation time, kept on a traced run only
+        # (the start of the file's ``vol.file`` span)
+        self._created_at: Dict[str, float] = {}
         self.log: List[Tuple[float, str]] = []
         # Serialize serving against the rescale channel swap: a resize of a
         # downstream task replaces entries of ``self.outgoing`` under this
@@ -222,6 +225,8 @@ class VOL:
     # ------------------------------------------------- h5-facing entry points
     def on_file_create(self, f: File) -> None:
         self._open_files[f.filename] = f
+        if self.tracer is not None:
+            self._created_at[f.filename] = time.monotonic()
 
     def on_file_close(self, f: File) -> None:
         t0 = time.monotonic()
@@ -249,12 +254,19 @@ class VOL:
             self.clear_files()
         tr = self.tracer  # local: the driver may detach it concurrently
         if tr is not None:
-            # lifecycle span, not a wait: the rendezvous-blocked portion is
+            # lifecycle spans, not waits: the rendezvous-blocked portion is
             # claimed by the nested channel.offer spans, the rest is serve
-            # work (filter/slab/spill) on the producer's own clock
-            tr.record("vol", "vol.close", self.task, self.instance, t0,
-                      time.monotonic(), step=self.file_close_counter - 1,
-                      filename=f.filename)
+            # work (filter/slab/spill) on the producer's own clock.
+            # vol.file runs from the file's creation (dataset writes
+            # included) to here, with the payload it carried
+            t1 = time.monotonic()
+            step = self.file_close_counter - 1
+            tr.record("vol", "vol.close", self.task, self.instance, t0, t1,
+                      step=step, filename=f.filename)
+            tr.record("vol", "vol.file", self.task, self.instance,
+                      self._created_at.pop(f.filename, t0), t1, step=step,
+                      filename=f.filename,
+                      bytes=sum(ds.nbytes for ds in f.visit_datasets()))
         sched = self.scheduler  # local: the driver may detach it concurrently
         if sched is not None:
             sched.notify_step("file_close")
@@ -361,6 +373,7 @@ class VOL:
         the supervisor calls both under the restart barrier."""
         self._unserved.clear()
         self._open_files.clear()
+        self._created_at.clear()
         self.file_close_counter = 0
         self.file_open_counter = 0
         self.dataset_write_counter = 0

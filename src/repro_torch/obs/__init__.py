@@ -3,16 +3,20 @@ analysis, and the failure flight recorder.
 
 Opt in per run (``tracing: {...}`` in the workflow YAML or
 ``Wilkins.run(trace=...)``); when off, no recorder exists and every hook
-site is a single ``None`` test.  See DESIGN.md "Observability & tracing".
+site is a single ``None`` test.  See DESIGN.md "Observability & tracing"
+and, for what the port adds (device intervals from CUDA events, the
+training step's spans, ``last_run_spans()``), PORT.md "Tracing on the
+card".
 """
 
 from .recorder import (CATEGORIES, SpanRecorder, TraceConfig, created_count,
-                       flow_id, span_categories)
+                       flow_id, last_run_spans, span_categories)
 from .export import export_trace, load_trace, merge_timeline, to_chrome
 from .critical import attribute, critical_path, format_report, per_edge
 
 __all__ = [
     "CATEGORIES", "SpanRecorder", "TraceConfig", "created_count", "flow_id",
-    "span_categories", "export_trace", "load_trace", "merge_timeline",
-    "to_chrome", "attribute", "critical_path", "format_report", "per_edge",
+    "last_run_spans", "span_categories", "export_trace", "load_trace",
+    "merge_timeline", "to_chrome", "attribute", "critical_path",
+    "format_report", "per_edge",
 ]

@@ -20,6 +20,19 @@ closed, with an ``aborted`` arg when the interval ended in an interrupt /
 poison / crash instead of a delivery.  There is nothing to leak across a
 restart or rescale; the span-lifecycle test asserts exactly that.
 
+**Device time** (``device_mark`` / ``record_device``): on a CUDA device a
+span may also carry the interval between two timing events recorded on
+the stream, as ``args.dev_t0``/``dev_t1`` in monotonic seconds.  The
+events wait in the recording shard's ``pending`` list (under the shard
+lock, so no new lock) and are resolved when ``spans()`` collects them:
+two anchors -- an event recorded on the idle device and waited for, and
+the monotonic time read right after -- one taken before the run's first
+device mark, one at collection, map the card's clock onto
+``time.monotonic()`` linearly, so drift over the run cancels.  No event
+object leaves the recorder: the span dicts (and so the export,
+``load_trace`` and the flight dumps) hold floats only.  Nothing here
+calls a profiler.
+
 The **flight recorder** is a bounded per-shard ring of the most recent
 spans; ``mark_failure(reason)`` snapshots the merged ring into
 ``failure_dumps`` so every failure path (task failure, restart exhaustion,
@@ -37,12 +50,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ..analysis.lockcheck import make_lock
 
-__all__ = ["TraceConfig", "SpanRecorder", "flow_id", "span_categories"]
+__all__ = ["TraceConfig", "SpanRecorder", "flow_id", "span_categories",
+           "last_run_spans", "device_to_monotonic"]
 
 #: span taxonomy -- one category per instrumented layer (DESIGN.md
 #: "Observability & tracing" documents the member spans of each)
 CATEGORIES = ("vol", "channel", "prefetch", "reshard", "checkpoint",
-              "recovery", "rescale", "task", "counter", "timeline")
+              "recovery", "rescale", "task", "train", "counter", "timeline")
 
 # process-wide construction counter: the zero-cost test asserts an untraced
 # run leaves it unchanged (no recorder, hence no spans, was ever allocated)
@@ -53,6 +67,45 @@ _CREATED = 0
 def created_count() -> int:
     with _created_lock:
         return _CREATED
+
+
+# the resolved spans of the process's newest finished traced run: set by
+# the driver when a traced run finalises (a plain rebinding, no lock), so
+# code in the same process reads them after the run's report is gone
+_LAST_RUN_SPANS: Optional[List[Dict[str, Any]]] = None
+
+
+def last_run_spans() -> Optional[List[Dict[str, Any]]]:
+    """The span dicts of the newest traced run of this process that has
+    finished (success or error path), or ``None`` before the first."""
+    return _LAST_RUN_SPANS
+
+
+def set_last_run_spans(spans: List[Dict[str, Any]]) -> None:
+    global _LAST_RUN_SPANS
+    _LAST_RUN_SPANS = spans
+
+
+def device_to_monotonic(ms: float, t_first: float, ms_second: float,
+                        t_second: float) -> float:
+    """Monotonic seconds of a device event ``ms`` milliseconds after the
+    first anchor, which the host saw at ``t_first``, the second anchor lying
+    ``ms_second`` after the first and seen at ``t_second``: the linear map
+    through both anchors."""
+    return t_first + (t_second - t_first) * (ms / ms_second)
+
+
+def _anchor(device: Any) -> Tuple[Any, float]:
+    """An event on ``device``'s current stream, recorded once the device is
+    idle and waited for, and the monotonic time the host read right after
+    the wait."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    ev.synchronize()
+    return ev, time.monotonic()
 
 
 def flow_id(channel_name: str, seq: int) -> int:
@@ -144,13 +197,15 @@ class TraceConfig:
 
 
 class _Shard:
-    __slots__ = ("lock", "spans", "ring", "dropped")
+    __slots__ = ("lock", "spans", "ring", "dropped", "pending")
 
     def __init__(self, index: int, flight_len: int):
         self.lock = make_lock(f"leaf:obs[{index}]")
         self.spans: List[Dict[str, Any]] = []
         self.ring: deque = deque(maxlen=flight_len)
         self.dropped = 0
+        # (span, device, opening event, closing event) awaiting spans()
+        self.pending: List[Tuple[Dict[str, Any], Any, Any, Any]] = []
 
 
 class SpanRecorder:
@@ -174,6 +229,9 @@ class SpanRecorder:
         self.failure_dumps: List[Dict[str, Any]] = []
         self._dump_lock = make_lock("leaf:obs_dumps")
         self.t_origin = time.monotonic()
+        # device -> the first anchor (event, monotonic s); set once per
+        # device by ``device_mark`` (``dict.setdefault``: no lock)
+        self._anchors: Dict[Any, Tuple[Any, float]] = {}
         with _created_lock:
             _CREATED += 1
 
@@ -206,7 +264,31 @@ class SpanRecorder:
                     "instance": instance, "t0": t, "t1": t, "step": None,
                     "flow": None, "args": {"value": value}})
 
-    def _push(self, span: Dict[str, Any]) -> None:
+    def device_mark(self, device: Any) -> Any:
+        """A timing event recorded now on ``device``'s current stream (a
+        CUDA device), for ``record_device``.  The run's first mark on a
+        device takes that device's first anchor before it."""
+        import torch
+
+        if device not in self._anchors:
+            self._anchors.setdefault(device, _anchor(device))
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        return ev
+
+    def record_device(self, cat: str, name: str, task: str, instance: int,
+                      t0: float, t1: float, device: Any, ev0: Any, ev1: Any,
+                      step: Optional[int] = None, **args: Any) -> None:
+        """``record`` of a span whose device interval runs from ``ev0`` to
+        ``ev1`` (two ``device_mark`` events); ``spans()`` adds it to the
+        span's args as ``dev_t0``/``dev_t1``."""
+        self._push({"ph": "X", "cat": cat, "name": name, "task": task,
+                    "instance": instance, "t0": t0, "t1": t1, "step": step,
+                    "flow": None, "args": args},
+                   (device, ev0, ev1))
+
+    def _push(self, span: Dict[str, Any],
+              device: Optional[Tuple[Any, Any, Any]] = None) -> None:
         sh = self._shards[threading.get_ident() & self._mask]
         with sh.lock:
             if len(sh.spans) < self._per_shard_cap:
@@ -214,6 +296,32 @@ class SpanRecorder:
             else:
                 sh.dropped += 1
             sh.ring.append(span)
+            if device is not None:
+                sh.pending.append((span, *device))
+
+    def _resolve_device(self, pending: List[Tuple[Dict[str, Any], Any, Any, Any]]
+                        ) -> None:
+        """Map the ``pending`` spans' events onto the monotonic clock by each
+        device's first anchor and one taken now (the events are dropped)."""
+        by_device: Dict[Any, List[Tuple[Dict[str, Any], Any, Any]]] = {}
+        for span, device, ev0, ev1 in pending:
+            by_device.setdefault(device, []).append((span, ev0, ev1))
+        for device, items in by_device.items():
+            first, t_first = self._anchors[device]
+            try:
+                second, t_second = _anchor(device)
+                ms_second = first.elapsed_time(second)
+                times = [(first.elapsed_time(ev0), first.elapsed_time(ev1))
+                         for _, ev0, ev1 in items]
+            except RuntimeError:
+                # the device failed (a CUDA error ending the run): its spans
+                # keep their host interval only, and collection goes on
+                continue
+            for (span, _, _), (ms0, ms1) in zip(items, times):
+                span["args"]["dev_t0"] = device_to_monotonic(
+                    ms0, t_first, ms_second, t_second)
+                span["args"]["dev_t1"] = device_to_monotonic(
+                    ms1, t_first, ms_second, t_second)
 
     # -------------------------------------------------------- flight recorder
     def flight(self) -> List[Dict[str, Any]]:
@@ -246,11 +354,19 @@ class SpanRecorder:
 
     # ------------------------------------------------------------- snapshots
     def spans(self) -> List[Dict[str, Any]]:
-        """Every retained span, merged across shards, start-time ordered."""
+        """Every retained span, merged across shards, start-time ordered,
+        with the device intervals recorded so far resolved."""
         out: List[Dict[str, Any]] = []
+        pending: List[Tuple[Dict[str, Any], Any, Any, Any]] = []
         for sh in self._shards:
+            # one hold per shard, as without device spans: the explorer
+            # counts every acquisition as a scheduling point
             with sh.lock:
                 out.extend(sh.spans)
+                pending.extend(sh.pending)
+                sh.pending.clear()
+        if pending:
+            self._resolve_device(pending)
         out.sort(key=lambda s: (s["t0"], s["t1"]))
         return out
 

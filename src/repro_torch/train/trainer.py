@@ -27,16 +27,26 @@ gradients come back with the parameters' layouts, reduced across the data
 ranks by DTensor's redistribution as GSPMD reduces the reference's; under
 ``weight_gather`` rules they are constrained to the parameter layout (the
 reference's ZeRO hint, trainer.py:151: a reduce-scatter).
+
+Inside a traced ``Wilkins`` run (the task's VOL, pushed on its thread,
+holds the run's ``SpanRecorder``) each step records ``train.step`` and its
+phases ``train.forward``, ``train.backward`` (each microbatch's) and
+``train.optimizer`` (PORT.md "Tracing on the card"); on a CUDA device each
+also carries its device interval, between timing events recorded on the
+stream at the phase boundaries.  Untraced, a step pays one lookup and one
+``None`` test.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..core.vol import current_vol
 from ..models.registry import get_family
 from ..parallel.sharding import (DEFAULT_RULES, axis_size, constrain,
                                  current_mesh, current_rules, local_apply,
@@ -150,6 +160,44 @@ def _accumulate_compressed(gsum, err, grads, acc_dt) -> None:
             err[n] = f - deq
 
 
+class _Phases:
+    """The spans of one traced step: each phase runs from the previous
+    boundary to the next (host clock), and on a CUDA device also between the
+    timing events recorded there; ``close`` records the parent
+    ``train.step``."""
+
+    def __init__(self, tracer, vol, step: int, device):
+        self.tracer, self.task, self.instance = tracer, vol.task, vol.instance
+        self.step = step
+        self.device = device if device.type == "cuda" else None
+        self.ev0 = self.ev = self._event()
+        self.t0 = self.t = time.monotonic()
+
+    def _event(self):
+        if self.device is None:
+            return None
+        return self.tracer.device_mark(self.device)
+
+    def _record(self, name: str, t0: float, t1: float, ev0, ev1) -> None:
+        if self.device is None:
+            self.tracer.record("train", name, self.task, self.instance, t0, t1,
+                               step=self.step)
+        else:
+            self.tracer.record_device("train", name, self.task, self.instance,
+                                      t0, t1, self.device, ev0, ev1,
+                                      step=self.step)
+
+    def mark(self, name: str) -> None:
+        """End phase ``name`` here; the next phase starts here."""
+        ev = self._event()
+        t = time.monotonic()
+        self._record(name, self.t, t, self.ev, ev)
+        self.t, self.ev = t, ev
+
+    def close(self) -> None:
+        self._record("train.step", self.t0, self.t, self.ev0, self.ev)
+
+
 def make_train_step(
     cfg,
     opt_cfg: Optional[AdamWConfig] = None,
@@ -165,16 +213,24 @@ def make_train_step(
     opt_cfg = opt_cfg or AdamWConfig(state_dtype=cfg.opt_state_dtype)
     fam = get_family(cfg)
     loss_fn = fam.loss_fn
+    calls = 0     # the step's own count of its calls: the spans' ``step``
 
-    def grads_of(model, batch):
+    def grads_of(model, batch, phases):
         names, params = zip(*model.named_parameters())
         loss = loss_fn(model, cfg, batch)
+        if phases is not None:
+            phases.mark("train.forward")
         grads = torch.autograd.grad(loss, params)
         return loss.detach(), dict(zip(names, grads))
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
+        nonlocal calls
+        calls += 1
+        vol = current_vol()
+        tracer = vol.tracer if vol is not None else None
         model = state.params
         dev = next(model.parameters()).device
+        phases = None if tracer is None else _Phases(tracer, vol, calls, dev)
         sharded = _is_sharded(model)
         if sharded:
             batch = {k: _batch_leaf(v, dev) for k, v in batch.items()}
@@ -183,7 +239,9 @@ def make_train_step(
                      for k, v in batch.items()}
 
         if accum_steps == 1:
-            loss, grads = grads_of(model, batch)
+            loss, grads = grads_of(model, batch, phases)
+            if phases is not None:
+                phases.mark("train.backward")
         else:
             mb_rules = current_rules()
             if sharded:
@@ -210,7 +268,7 @@ def make_train_step(
             for mb in micro:
                 with (use_mesh(current_mesh(), mb_rules) if sharded
                       else contextlib.nullcontext()):
-                    l, g = grads_of(model, mb)
+                    l, g = grads_of(model, mb, phases)
                 losses.append(l)
                 with torch.no_grad():
                     if err is None:
@@ -219,6 +277,8 @@ def make_train_step(
                     else:
                         _accumulate_compressed(gsum, err, g, acc_dt)
                 del g
+                if phases is not None:    # the accumulation is backward's
+                    phases.mark("train.backward")
             # in place, and the error buffer freed: at full width each is a
             # float32 copy of the parameters, and the update still needs the
             # moments' room
@@ -233,6 +293,9 @@ def make_train_step(
             grads = {n: constrain(g, pspecs[n]) for n, g in grads.items()}
 
         _, new_opt, om = adamw_update(model, grads, state.opt, opt_cfg)
+        if phases is not None:
+            phases.mark("train.optimizer")
+            phases.close()
         metrics = {"loss": loss, **om}
         return TrainState(model, new_opt, state.rng), metrics
 
