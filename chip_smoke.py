@@ -3,12 +3,15 @@
     python3 chip_smoke.py [--seed N] [--profile]
     python3 chip_smoke.py --k3-against DIR
     python3 chip_smoke.py --k4-against DIR
+    python3 chip_smoke.py --adamw
 
-The other forms build only the kernels and time bf16 K3 (or K4) against
-the one of another checkout at DIR (unpacked, e.g. with ``git archive``,
-into a directory ``.gitignore`` lists), the two in turns at phase 7's
-shapes (K4: also at the training shape), with ptxas's report on this
-checkout's kernels.
+The ``--k3-against``/``--k4-against`` forms build only the kernels and
+time bf16 K3 (or K4) against the one of another checkout at DIR
+(unpacked, e.g. with ``git archive``, into a directory ``.gitignore``
+lists), the two in turns at phase 7's shapes (K4: also at the training
+shape), with ptxas's report on this checkout's kernels.  ``--adamw``
+builds them and prints only phase 7's ``adamw`` row: the fused AdamW held
+to the plain loop at mamba2-2.7b's 578 leaves, then timed.
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together) and then, each phase printing one
@@ -84,7 +87,16 @@ JSON line and any failure exiting non-zero:
    run of phase 8 (``launches_faults``), K3 and K4 in phase 9 by part and
    model (``launches_train``: the bf16 steps, the float32 gates, the
    accumulation runs, the resume), K3 float32 in phase 14 (b)'s forward
-   (``launches_parallel``) and in phase 16 (``launches_insitu``);
+   (``launches_parallel``) and in phase 16 (``launches_insitu``); and the
+   fused AdamW (``adamw``, its three kernels) at mamba2-2.7b's 578 leaves
+   (bf16 weights and gradients, float32 moments, clip 1.0): first held to
+   the plain loop from the same state (``check``: clipping on, the norm and
+   float32 leaves within 1e-6 relative and bf16 leaves equal but for at most
+   1 % of elements one rounding step apart, ``max_share_of_limit``; clipping
+   off, bit for bit), then one update's time beside its bytes bound (24 B
+   an element: p, m and v read and written, the gradient read by the norm
+   and the update) and the plain loop's, with its launches per update and
+   over phases 9 and 16;
 8. faults -- checkpointed restart and elastic rescale on ``cuda:0`` at the
    field size of phase 3: one ``nyx`` evolves a 256^3 float32 density (from
    ``--seed``) through 8 snapshots with a torch diffusion step and
@@ -129,7 +141,9 @@ JSON line and any failure exiting non-zero:
    ``TRAIN_LR``);
    every loss finite, the 4th below the 1st, each kernel
    launched exactly 4 x ``step_launches`` (counts set to 0 just before the
-   4 steps and read just after), no plain K3 (causal) or K4 call, peak
+   4 steps and read just after), and each fused AdamW kernel 4 x
+   ``optim.fused_launches`` (its plan's launches per update), no plain K3
+   (causal) or K4 call, peak
    memory below 80 GB.  Printed per model: seconds per step, tokens/s,
    peak device memory, and, from a fifth step taken under
    ``torch.profiler``, the device time per step by kernel kind and its
@@ -297,6 +311,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import gc
 import json
@@ -323,10 +338,13 @@ SPIN_CYCLES = 1_000_000      # about half a millisecond of the card's clock
 REPLACES = {"pack_blocks": "src/repro/kernels/pack.py:37",
             "pack_cols": "src/repro/kernels/pack.py:74",
             "flash_attention": "src/repro/kernels/flash_attention.py:87",
-            "ssd_intra_chunk": "src/repro/kernels/ssd_scan.py:52"}
+            "ssd_intra_chunk": "src/repro/kernels/ssd_scan.py:52",
+            "adamw": "none: the reference leaves AdamW to XLA "
+                     "(src/repro/train/optim.py)"}
 CSRC = "src/repro_torch/kernels/csrc"
 SOURCES = {"pack_blocks": "pack", "pack_cols": "pack",
-           "flash_attention": "flash_attention", "ssd_intra_chunk": "ssd_scan"}
+           "flash_attention": "flash_attention", "ssd_intra_chunk": "ssd_scan",
+           "adamw": "adamw"}
 # phase 6: six models at full width, one after the other: (arch, each kernel's
 # launches per prefill, prompt lengths drawn from the seed, the probe's length
 # (one prompt's, and the flash-vs-plain probe), layers kept of the config's).
@@ -622,17 +640,18 @@ def workflow(core, dev, seed: int, verify: bool, trace=None):
 
 
 # --------------------------------------------------------------- phase 4
-def time_ms(fn, flush) -> float:
+def time_ms(fn, flush, spin=SPIN_CYCLES) -> float:
     """Median device time of ``fn`` over REPS launches, L2 flushed before
-    each (the main path finds its slab cold).  A spin kernel keeps the card
-    busy while the host queues the start event and ``fn``'s launches, so a
-    slow host adds no idle time between the events."""
+    each (the main path finds its slab cold).  A spin kernel of ``spin``
+    cycles keeps the card busy while the host queues the start event and
+    ``fn``'s launches, so a slow host adds no idle time between the
+    events."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(REPS):
         flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -1302,6 +1321,147 @@ def time_model_kernels(ref, fa, ssd, dev, rates, launches, errs):
     return out
 
 
+ADAMW_TOL = 1e-6        # the fused AdamW against the plain loop, clipping on:
+                        # the norm and each float32 leaf, relative
+ADAMW_BF16_MOVED = 0.01  # share of a bf16 leaf's elements one rounding step apart
+
+
+@torch.no_grad()
+def adamw_check(params, grads, state, ocfg):
+    """The fused AdamW against the plain loop on the card from the same
+    state and gradients: clipping on (``ocfg``), the global norm and every
+    float32 leaf of p, m and v within ``ADAMW_TOL`` relative, every bf16
+    leaf equal but for at most ``ADAMW_BF16_MOVED`` of its elements one
+    rounding step apart; then, from the fused side's state copied to the
+    plain side, clipping off and every leaf equal bit for bit.  Updates
+    ``params`` and ``state``'s moments twice in place; returns (the report,
+    its problems, the fused state, the fused update's launches)."""
+    from repro_torch.kernels import adamw as fused
+    from repro_torch.kernels import build
+    from repro_torch.train import optim
+
+    names = list(params)
+    trees = {"p": params, "m": state.m, "v": state.v}
+    other = {k: {n: t[n].clone() for n in names} for k, t in trees.items()}
+    before = build.launch_counts(fused.NAMES)
+    _, st_f, met_f = optim.adamw_update(params, grads, state, ocfg)
+    torch.cuda.synchronize()
+    per_update = {k: n - before[k] for k, n in build.launch_counts(fused.NAMES).items()}
+    _, _, met_p = optim.adamw_update_plain(
+        other["p"], grads, optim.OptState(state.step, other["m"], other["v"]), ocfg)
+    n_f, n_p = float(met_f["grad_norm"]), float(met_p["grad_norm"])
+    shares = {"grad_norm": abs(n_f / n_p - 1) / ADAMW_TOL}
+    worst_f32, worst_moved, beyond = 0.0, 0.0, []
+    for k, tree in trees.items():
+        for n in names:
+            a, b = tree[n], other[k][n]
+            if a.dtype == torch.float32:
+                worst_f32 = max(worst_f32, float((a - b).norm()
+                                                 / b.norm().clamp_min(1e-30)))
+            else:
+                a, b = a.float(), b.float()
+                if not bool(((a - b).abs() <= 2**-7 * b.abs()).all()):
+                    beyond.append(f"{k} {n}")
+                worst_moved = max(worst_moved, float((a != b).float().mean()))
+    shares["float32"] = worst_f32 / ADAMW_TOL
+    shares["bf16_moved"] = worst_moved / ADAMW_BF16_MOVED
+    for k, tree in trees.items():                       # the same start again
+        for n in names:
+            other[k][n].copy_(tree[n])
+    off = dataclasses.replace(ocfg, grad_clip=0.0)
+    start = optim.OptState(st_f.step, other["m"], other["v"])
+    _, st_f, _ = optim.adamw_update(params, grads, st_f, off)
+    optim.adamw_update_plain(other["p"], grads, start, off)
+    torch.cuda.synchronize()
+    mismatched = sum(int((trees[k][n] != other[k][n]).sum())
+                     for k in trees for n in names)
+    problems = [f"{what} at {share:.3g} of its limit"
+                for what, share in shares.items() if share > 1]
+    if beyond:
+        problems.append(f"bf16 leaves more than one rounding step apart: {beyond[:5]}")
+    if mismatched:
+        problems.append(f"clipping off, {mismatched} elements differ from the plain loop")
+    report = {"check": {"grad_norm": n_f, "grad_norm_plain": n_p,
+                        "share_of_limit": shares, "float32_max_rel": worst_f32,
+                        "bf16_max_moved": worst_moved, "bf16_beyond_one_step": beyond,
+                        "clip_off_mismatched_elements": mismatched,
+                        "limits": {"rel": ADAMW_TOL, "bf16_moved": ADAMW_BF16_MOVED,
+                                   "clip_off": "bit for bit"}},
+              "max_share_of_limit": max(shares.values())}
+    del other
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, problems, st_f, per_update
+
+
+def adamw_timing(build, dev, rates, launches):
+    """The fused AdamW (``csrc/adamw.cu``) at mamba2-2.7b's leaves as the
+    benchmark trains them (64 layers, tied embeddings: 578 leaves, bf16
+    weights and gradients, float32 norm scales, ``A_log``, ``D``,
+    ``dt_bias`` and moments, clip 1.0): first held to the plain loop
+    (``adamw_check``; a failure raises after the row is printed), then,
+    cold L2, one update's device time (a spin kernel covers the host's
+    queueing, ``host_ms``) and the plain loop's, beside the bytes bound
+    (each element's p, m and v read and written once, its gradient read by
+    the norm and by the update)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import MambaLM
+    from repro_torch.train import optim
+
+    bw = rates[0]
+    cfg = get_config("mamba2-2.7b").replace(tie_embeddings=True)
+    model = MambaLM(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for p in params.values():
+            p.normal_(0.0, 0.02, generator=g)
+    grads = {n: 1e-3 * torch.randn(p.shape, generator=g, device=dev, dtype=p.dtype)
+             for n, p in params.items()}
+    ocfg = optim.AdamWConfig(lr=1e-3, warmup_steps=10, grad_clip=1.0)
+    state = optim.adamw_init(params, ocfg)
+    moved = sum(p.numel() * (2 * p.element_size() + 2 * grads[n].element_size()
+                             + 4 * state.m[n].element_size())
+                for n, p in params.items())
+    check, problems, state, per_update = adamw_check(params, grads, state, ocfg)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    fused_fn = lambda: optim.adamw_update(params, grads, state, ocfg)  # noqa: E731
+    plain_fn = lambda: optim.adamw_update_plain(params, grads, state, ocfg)  # noqa: E731
+    host = {}
+    for name, fn in (("fused", fused_fn), ("plain", plain_fn)):
+        queued = []    # the host's time to queue one update, card not waited for
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            queued.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        host[name] = statistics.median(queued)
+    # spin past the host's queueing (about 2e6 cycles a millisecond), so
+    # that the events bracket the card's work alone
+    ms = time_ms(fused_fn, flush, spin=int(3e6 * host["fused"]) + SPIN_CYCLES)
+    plain_ms = time_ms(plain_fn, flush, spin=int(3e6 * host["plain"]) + SPIN_CYCLES)
+    bound = moved / bw * 1e3
+    row = {"name": "adamw", "dtype": "bf16 weights and gradients, float32 moments",
+           "route": "cuda", "source": source("adamw"), "replaces": REPLACES["adamw"],
+           "launches": launches, "launches_per_update": per_update,
+           "leaves": len(params), "params": sum(p.numel() for p in params.values()),
+           "shape": "mamba2-2.7b, 64 layers, tied embeddings",
+           "ms": ms, "plain_ms": plain_ms, "host_ms": host["fused"],
+           "plain_host_ms": host["plain"], "bound_ms": bound, "bound_by": "bytes",
+           "share_of_bound": bound / ms, "bytes": moved, "peak_bytes_per_s": bw,
+           **check, "library_ms": None,
+           "library": "none: the port calls no library optimizer (torch.optim's "
+                      "AdamW gives other numbers)"}
+    del model, params, grads, state, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        emit(row)
+        raise RuntimeError("adamw: " + "; ".join(problems))
+    return row
+
+
 def ptxas_report(build, name, pattern):
     """ptxas's report on this checkout's ``csrc/<name>.cu``: per kernel
     whose mangled name ``pattern`` matches (its groups name it), registers,
@@ -1816,7 +1976,7 @@ def train_model(arch, n_layers, seq, build, ref, dev, seed):
     bf16, remat and moments as configured, use_flash: 4 steps of
     make_train_step, then a fifth under the profiler."""
     from repro_torch.train import AdamWConfig, init_state, make_train_step
-    from repro_torch.train.optim import adamw_update
+    from repro_torch.train.optim import adamw_update, fused_launches
 
     cfg = train_config(arch, n_layers, use_flash=True)
     ocfg = AdamWConfig(lr=TRAIN_LR.get(arch, TRAIN_LR_DEFAULT), warmup_steps=1,
@@ -1858,7 +2018,9 @@ def train_model(arch, n_layers, seq, build, ref, dev, seed):
     del zeros
     n_params = sum(p.numel() for p in model.parameters())
     tokens = TRAIN_BATCH * seq
-    want = {k: TRAIN_STEPS * n for k, n in step_launches(cfg).items()}
+    per_update = fused_launches(model, state_dtype=ocfg.state_dtype)
+    want = {k: TRAIN_STEPS * n for k, n in
+            {**step_launches(cfg), **per_update}.items()}
     got = {k: n for k, n in launches.items() if n}
     problems = []
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1891,6 +2053,7 @@ def train_model(arch, n_layers, seq, build, ref, dev, seed):
            "lr": ocfg.lr, "init_s": init_s, "losses": losses, "grad_norms": gnorms,
            "step_s": step_s, "s_per_step": steady, "tokens_per_s": tokens / steady,
            "first_step_s": step_s[0], "optimizer_s": optimizer_s,
+           "optimizer_launches_per_update": per_update,
            "launches": got, "launches_expected": want, "plain_calls": plain_calls,
            "max_memory_allocated": peak_mem, **prof}
     del state, model, batches
@@ -1926,6 +2089,7 @@ def variant_steps(cfg, seq, variants, build, dev, seed):
     before it (accumulation against the plain step, compression against
     accumulation)."""
     from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train.optim import fused_launches
 
     ocfg = AdamWConfig(lr=TRAIN_LR_DEFAULT, warmup_steps=1,
                        total_steps=TRAIN_STEPS, state_dtype=cfg.opt_state_dtype)
@@ -1948,7 +2112,11 @@ def variant_steps(cfg, seq, variants, build, dev, seed):
                "compress_grads": kw.get("compress_grads", False),
                "loss": loss, "s": time.perf_counter() - t0,
                "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-               "launches": launches_since(build, before)}
+               "launches": launches_since(build, before),
+               # accumulated gradients are in the moments' dtype
+               "optimizer_launches": fused_launches(
+                   state.params, getattr(torch, ocfg.state_dtype)
+                   if kw.get("accum_steps", 1) > 1 else None, ocfg.state_dtype)}
         params = {n: p.detach() for n, p in state.params.named_parameters()}
         if prev is not None:
             row["loss_rel"] = abs(loss - prev[0]) / abs(prev[0])
@@ -1986,7 +2154,8 @@ def accum_runs(arch, gate_layers, seq, build, dev, seed):
                             ("bf16", full, full_cfg)):
         per = step_launches(cfg)
         for r in rows:
-            want = {k: r["accum_steps"] * n for k, n in per.items()}
+            want = {**{k: r["accum_steps"] * n for k, n in per.items()},
+                    **r["optimizer_launches"]}
             if r["launches"] != want or not np.isfinite(r["loss"]) or \
                     r["max_memory_allocated"] >= CARD_BYTES:
                 problems.append(f"{arch} {what} {r}: expected launches {want}, "
@@ -3357,6 +3526,9 @@ def main() -> int:
     ap.add_argument("--k4-against", metavar="DIR",
                     help="only time K4 against the one of the checkout at "
                          "DIR, in turns, and exit")
+    ap.add_argument("--adamw", action="store_true",
+                    help="only check and time the fused AdamW at mamba2-2.7b's "
+                         "leaves, and exit")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3371,7 +3543,7 @@ def main() -> int:
     import repro_torch.core as core
     from repro_torch.core.datamodel import reset_transport_stats, transport_stats
     from repro_torch.core.redistribute import plan_cache, reset_plan_cache
-    from repro_torch.kernels import build, ops, pack, ref
+    from repro_torch.kernels import adamw, build, ops, pack, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
 
@@ -3381,7 +3553,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     card = smi()
     rates = peaks(name)
-    libs = ["pack", "flash_attention", "ssd_scan"]
+    libs = ["pack", "flash_attention", "ssd_scan", "adamw"]
     cached = [build.library_path(n).exists() for n in libs]
     t0 = time.perf_counter()
     build.build_all(libs)
@@ -3393,6 +3565,10 @@ def main() -> int:
             emit(k3_against(args.k3_against, build, fa, dev, rates))
         if args.k4_against:
             emit(k4_against(args.k4_against, build, ssd, ref, dev, rates))
+        print(card, flush=True)
+        return 0
+    if args.adamw:
+        emit({"phase": "adamw", **adamw_timing(build, dev, rates, {})})
         print(card, flush=True)
         return 0
 
@@ -3489,6 +3665,11 @@ def main() -> int:
         k["launches_faults"] = {run: n[k["name"]]
                                 for run, n in faults_launches.items()}
     kernels += time_model_kernels(ref, fa, ssd, dev, rates, launches, errs)
+    # the fused AdamW: its launches over phase 9's steps and phase 16's run
+    adamw_launches = {part: {k: v for k, v in by_key.items() if k in adamw.NAMES}
+                      for part, by_key in train_launches.items()}
+    adamw_launches["insitu"] = {k: insitu_launches.get(k, 0) for k in adamw.NAMES}
+    adamw_row = adamw_timing(build, dev, rates, adamw_launches)
     for k in kernels[2:]:  # K3 bf16 and K4: phase 6's requests; K3 float32: its gates
         if k["name"] == "flash_attention" and k["dtype"] == "float32":
             k["launches_by_arch"] = {
@@ -3516,6 +3697,7 @@ def main() -> int:
         k["launches_trace"] = trace_launches.get(k["name"], 0)
         k["launches_examples"] = {run: n.get(k["name"], 0)
                                   for run, n in example_launches.items()}
+    kernels.append(adamw_row)
     emit({"phase": "run", "run_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -33,8 +33,9 @@ holds the run's ``SpanRecorder``) each step records ``train.step`` and its
 phases ``train.forward``, ``train.backward`` (each microbatch's) and
 ``train.optimizer`` (PORT.md "Tracing on the card"); on a CUDA device each
 also carries its device interval, between timing events recorded on the
-stream at the phase boundaries.  Untraced, a step pays one lookup and one
-``None`` test.
+stream at the phase boundaries.  ``train.optimizer`` counts the update's
+``leaves`` and the fused AdamW kernels' ``launches`` in it (0 on the CPU).
+Untraced, a step pays one lookup and one ``None`` test.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ import numpy as np
 import torch
 
 from ..core.vol import current_vol
+from ..kernels.adamw import NAMES as ADAMW_KERNELS
+from ..kernels.build import launch_counts
 from ..models.registry import get_family
 from ..parallel.sharding import (DEFAULT_RULES, axis_size, constrain,
                                  current_mesh, current_rules, local_apply,
@@ -178,24 +181,30 @@ class _Phases:
             return None
         return self.tracer.device_mark(self.device)
 
-    def _record(self, name: str, t0: float, t1: float, ev0, ev1) -> None:
+    def _record(self, name: str, t0: float, t1: float, ev0, ev1, **args) -> None:
         if self.device is None:
             self.tracer.record("train", name, self.task, self.instance, t0, t1,
-                               step=self.step)
+                               step=self.step, **args)
         else:
             self.tracer.record_device("train", name, self.task, self.instance,
                                       t0, t1, self.device, ev0, ev1,
-                                      step=self.step)
+                                      step=self.step, **args)
 
-    def mark(self, name: str) -> None:
-        """End phase ``name`` here; the next phase starts here."""
+    def mark(self, name: str, **args: Any) -> None:
+        """End phase ``name`` here, with the counters ``args``; the next
+        phase starts here."""
         ev = self._event()
         t = time.monotonic()
-        self._record(name, self.t, t, self.ev, ev)
+        self._record(name, self.t, t, self.ev, ev, **args)
         self.t, self.ev = t, ev
 
     def close(self) -> None:
         self._record("train.step", self.t0, self.t, self.ev0, self.ev)
+
+
+def _optimizer_launches() -> int:
+    """The fused AdamW kernels' launches so far (none on the CPU path)."""
+    return sum(launch_counts(ADAMW_KERNELS).values())
 
 
 def make_train_step(
@@ -292,9 +301,12 @@ def make_train_step(
             pspecs = fam.param_specs(cfg)
             grads = {n: constrain(g, pspecs[n]) for n, g in grads.items()}
 
+        if phases is not None:
+            before = _optimizer_launches()
         _, new_opt, om = adamw_update(model, grads, state.opt, opt_cfg)
         if phases is not None:
-            phases.mark("train.optimizer")
+            phases.mark("train.optimizer", leaves=len(grads),
+                        launches=_optimizer_launches() - before)
             phases.close()
         metrics = {"loss": loss, **om}
         return TrainState(model, new_opt, state.rng), metrics

@@ -1,6 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA pack kernels (K1,
-K2), flash attention (K3) and the SSD intra-chunk step (K4) against their
-plain versions, the wrappers' checks on CUDA tensors, a small 4->2 workflow
+K2), flash attention (K3), the SSD intra-chunk step (K4) and the fused
+AdamW against their plain versions, the wrappers' checks on CUDA tensors, a small 4->2 workflow
 and two-layer serving engines on ``cuda:0`` that count their launches.
 They import torch and the port only (no JAX), so the card's machine runs
 them with
@@ -9,6 +9,8 @@ them with
 
 and they skip where there is no card."""
 
+import itertools
+import socket
 import threading
 
 import numpy as np
@@ -580,3 +582,172 @@ def test_two_layer_train_step_on_the_card_counts_its_launches(cuda, arch):
         losses.append(float(m["loss"]))
         assert build.launch_counts([name])[name] == 2 * cfg.n_layers
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# ------------------------------------------------------------ fused AdamW
+ADAMW_TRIPLES = list(itertools.product(("float32", "bfloat16"), repeat=3))
+ADAMW_SHAPES = {"embed.tok": (37, 1331),          # 3 chunks and a ragged tail
+                "layers.0.w": (48, 64), "layers.1.w": (48, 64),
+                "layers.0.scale": (64,), "layers.1.scale": (64,),
+                "head.b": (1,),                   # one element
+                "ln_f.scale": (1001,),            # not a multiple of 8
+                "odd.w": (777,)}                  # off the 16-byte grid
+
+
+def _on_card(x, dtype, misaligned):
+    """``x`` as ``dtype`` on the card; ``misaligned``: a view one element
+    into its buffer, so its address is off the 16-byte grid."""
+    if not misaligned:
+        return x.to(dtype)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _adamw_params(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    return {n: _on_card(0.5 * torch.randn(s, generator=g, device=cuda), dtype,
+                        n == "odd.w") for n, s in ADAMW_SHAPES.items()}
+
+
+def _adamw_grads(params, dtype, g, dyadic):
+    """Random gradients; ``dyadic``: k / 128 for k in [-8, 8], whose squares
+    add up exactly in float32 in any order, so that the norm, and with it
+    the clip scale, is the same bits on both paths."""
+    out = {}
+    for n, p in params.items():
+        x = (torch.randint(-8, 9, p.shape, generator=g, device=p.device) / 128
+             if dyadic else torch.randn(p.shape, generator=g, device=p.device))
+        out[n] = _on_card(x, dtype, n == "odd.w")
+    return out
+
+
+def _adamw_run(cuda, triple, clip, dyadic, fused_path):
+    from repro_torch.kernels import adamw as fused
+    from repro_torch.train import optim
+
+    pdt, gdt, mdt = (getattr(torch, d) for d in triple)
+    cfg = optim.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=10,
+                            grad_clip=clip, state_dtype=triple[2])
+    params = _adamw_params(cuda, pdt)
+    state = optim.adamw_init(params, cfg)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    norms, launched = [], []
+    for _ in range(5):
+        grads = _adamw_grads(params, gdt, g, dyadic)
+        before = sum(build.launch_counts(fused.NAMES).values())
+        fn = optim.adamw_update if fused_path else optim.adamw_update_plain
+        _, state, met = fn(params, grads, state, cfg)
+        launched.append(sum(build.launch_counts(fused.NAMES).values()) - before)
+        norms.append(met["grad_norm"].reshape(()))
+    torch.cuda.synchronize()
+    assert all(t.dtype == mdt for t in (*state.m.values(), *state.v.values()))
+    return params, state, torch.stack(norms), launched
+
+
+@pytest.mark.parametrize("case", ["clip_off", "clip_dyadic", "clip_random"])
+@pytest.mark.parametrize("triple", ADAMW_TRIPLES, ids="-".join)
+def test_fused_adamw_matches_the_plain_loop(cuda, triple, case):
+    """5 steps of the kernels against 5 of the plain loop on the card, for
+    every (parameter, gradient, moment) dtype triple.  Bit for bit with
+    clipping off, and with clipping on where the norm is exact; with
+    clipping on and random gradients the norm (summed in another order)
+    within 1e-6, the float32 state within 1e-6 relative, and a bf16 state
+    equal but for a few elements one rounding step apart."""
+    clip = 0.0 if case == "clip_off" else 1.0
+    dyadic = case == "clip_dyadic"
+    p1, s1, n1, launched = _adamw_run(cuda, triple, clip, dyadic, True)
+    p0, s0, n0, plain = _adamw_run(cuda, triple, clip, dyadic, False)
+    assert plain == [0] * 5 and all(0 < n <= 16 for n in launched), launched
+    assert float(((n1 - n0).abs() / n0).max()) <= 1e-6
+    if case == "clip_dyadic":
+        assert torch.equal(n1, n0) and float(n0.min()) > clip  # the clip bites
+    pairs = [(f"{what} {n}", a[n], b[n]) for what, a, b in
+             (("p", p1, p0), ("m", s1.m, s0.m), ("v", s1.v, s0.v)) for n in a]
+    for what, a, b in pairs:
+        if case != "clip_random":
+            assert torch.equal(a, b), what
+        elif a.dtype == torch.float32:
+            rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+            assert rel <= 1e-6, (what, rel)
+        else:
+            a, b = a.float(), b.float()
+            moved = a != b
+            assert bool(((a - b).abs() <= 2**-7 * b.abs()).all()), what
+            assert float(moved.float().mean()) <= 0.01, what
+
+
+def test_fused_adamw_refuses_what_it_does_not_take(cuda):
+    from repro_torch.train import optim
+
+    cfg = optim.AdamWConfig()
+    params = {"w": torch.zeros((4, 8), device=cuda, dtype=torch.float16)}
+    state = optim.adamw_init(params, cfg)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        optim.adamw_update(params, {"w": torch.zeros_like(params["w"])}, state, cfg)
+    params = {"w": torch.zeros((4, 8), device=cuda)}
+    state = optim.adamw_init(params, cfg)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        optim.adamw_update(params, {"w": torch.zeros((4, 8))}, state, cfg)
+    state.m["w"] = torch.zeros((8, 4), device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        optim.adamw_update(params, {"w": torch.zeros_like(params["w"])}, state, cfg)
+    # a tree whose first leaf is on the CPU and the next on the card
+    params = {"a": torch.zeros(4), "w": torch.zeros((4, 8), device=cuda)}
+    state = optim.adamw_init(params, cfg)
+    state.m["w"], state.v["w"] = (torch.zeros((4, 8), device=cuda) for _ in "mv")
+    with pytest.raises(ValueError, match=r"float32 or bfloat16 on cuda"):
+        optim.adamw_update(params, {n: torch.zeros_like(p) for n, p in params.items()},
+                           state, cfg)
+
+
+def test_fused_adamw_takes_dtensor_shards(cuda):
+    """``DTensor`` leaves on a one-rank NCCL mesh, sharded and replicated:
+    the kernels on the local shards equal the plain loop on plain tensors
+    bit for bit with clipping off; with clipping on (the norm's sums of
+    squares reduced across the ranks by class) the norm within 1e-6."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.train import optim
+
+    made = not dist.is_initialized()
+    if made:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1,))
+        for clip in (0.0, 1.0):
+            cfg = optim.AdamWConfig(lr=1e-2, warmup_steps=2, grad_clip=clip)
+            plain = {n: p for n, p in _adamw_params(cuda, torch.bfloat16).items()
+                     if n != "odd.w"}
+            place = lambda t: distribute_tensor(  # noqa: E731
+                t.clone(), mesh, [Shard(0) if t.dim() == 2 else Replicate()])
+            sharded = {n: place(p) for n, p in plain.items()}
+            s0, s1 = optim.adamw_init(plain, cfg), optim.adamw_init(sharded, cfg)
+            g = torch.Generator(device=cuda).manual_seed(4)
+            for _ in range(3):
+                grads = _adamw_grads(plain, torch.bfloat16, g, False)
+                _, s0, m0 = optim.adamw_update_plain(plain, grads, s0, cfg)
+                _, s1, m1 = optim.adamw_update(
+                    sharded, {n: place(t) for n, t in grads.items()}, s1, cfg)
+                rel = abs(float(m1["grad_norm"]) / float(m0["grad_norm"]) - 1)
+                assert rel <= 1e-6
+            torch.cuda.synchronize()
+            for n in plain:
+                for a, b in ((sharded[n], plain[n]), (s1.m[n], s0.m[n]),
+                             (s1.v[n], s0.v[n])):
+                    a = a.to_local()
+                    if clip == 0.0:
+                        assert torch.equal(a, b), n
+                    else:
+                        assert torch.allclose(a.float(), b.float(), rtol=2**-7,
+                                              atol=0), n
+    finally:
+        if made:
+            dist.destroy_process_group()

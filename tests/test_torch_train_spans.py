@@ -103,6 +103,18 @@ def test_each_step_has_one_parent_with_its_phases_inside(tmp_path, accum_steps):
         assert all("dev_t0" not in (s["args"] or {}) for s in kids + [parent])
 
 
+def test_the_optimizer_span_counts_leaves_and_launches(tmp_path):
+    """``train.optimizer`` carries the update's leaves (the model's
+    parameter tensors) and the fused AdamW's launches: none on the CPU,
+    whose update is the plain loop."""
+    rep, _ = _run(tmp_path, steps=2)
+    model = init_state(torch.Generator().manual_seed(0), CFG, OCFG, CPU).params
+    n = len(dict(model.named_parameters()))
+    opt = [s for s in load_trace(rep.trace_path) if s["name"] == "train.optimizer"]
+    assert [(s["args"]["leaves"], s["args"]["launches"]) for s in opt] == [(n, 0)] * 2
+    assert n > 1
+
+
 def test_vol_file_carries_the_files_bytes(tmp_path):
     rep, written = _run(tmp_path, steps=3)
     spans = load_trace(rep.trace_path)
