@@ -44,6 +44,7 @@ _MODULES: Dict[str, str] = {
     "internvl2-76b": "internvl2_76b",
     "zamba2-2.7b": "zamba2_2_7b",
     "whisper-base": "whisper_base",
+    "zamba2-7b": "zamba2_7b",     # training only: not in the shape grid
 }
 
 

@@ -1,5 +1,10 @@
 """zamba2-2.7b [hybrid] — Mamba2 backbone + shared attention blocks.
 
+A simplified Zamba2-style hybrid, as the JAX package has it, not the
+published form: one shared block at d_model with SwiGLU and a 4096
+window, no concatenation with the embedding and no adapters.  The
+published form is the ``zamba2`` family (``configs/zamba2_7b.py``).
+
 54L d_model=2560 32H (GQA kv=32) d_ff=10240 vocab=32000, ssm_state=64
 [arXiv:2411.15242; hf]
 

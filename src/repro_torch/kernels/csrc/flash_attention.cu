@@ -4,7 +4,7 @@
 // src/repro/kernels/flash_attention.py (flash_attention_bhsd, body _fa_kernel):
 //
 //   o[b, i, h, :] = sum_j softmax_j(s_ij) v[b, j, h / rep, :],
-//   s_ij = (q[b, i, h, :] * 1/sqrt(D)) . k[b, j, h / rep, :]
+//   s_ij = (q[b, i, h, :] * scale) . k[b, j, h / rep, :]
 //
 // masked to j < Sk, and j <= i when causal, and j > i - window when a window
 // is given.  q is (B, Sq, H, D), k/v (B, Sk, KV, D), o like q; any strides
@@ -14,8 +14,9 @@
 // In bfloat16 the probabilities P are also rounded to bf16 for the P V
 // product (about 2^-9 relative per weight).
 //
-// Semantics kept from the TPU kernel: the 1/sqrt(D) scale is applied in
-// float32; masked scores take the finite -1e30, not -inf, so a row that is
+// The scale is 1/sqrt(D) unless the caller passes another (Zamba2's
+// shared attention takes (D/2)^-1/2).  Semantics kept from the TPU kernel:
+// the scale is applied in float32; masked scores take the finite -1e30, not -inf, so a row that is
 // wholly masked inside a tile that runs gives exp(0) = 1 there and a later
 // correction exp(m_prev - m_new) = 0 erases it (with -inf the same step
 // would be NaN); k tiles wholly above the diagonal or wholly outside the
@@ -34,32 +35,38 @@
 // One block of three warpgroups per (q tile of 128 rows, head, batch),
 // one block per SM; the heaviest (last) q tiles of every head are
 // launched first, so the causal triangle's light tiles fill the tail.
+// k and v tiles hold BK = 128 rows up to D = 128; at D = 224 (Zamba2's
+// heads) BK is 64, since q (56 KB) and two stages of 128-row k and v tiles
+// (56 KB each) would outgrow shared memory, and the consumers' registers
+// (the accumulator O holds D / 2 floats a thread) leave room for a
+// 64-column S only.
 // - Warpgroup 0 is the producer: after setmaxnreg lowers it to 24
 //   registers, one thread loads the q tile once and then each k and v tile
-//   of 128 rows by TMA into a ring of two stages.  Each stage has a "full"
+//   of BK rows by TMA into a ring of two stages.  Each stage has a "full"
 //   mbarrier for k and one for v (their bytes complete them) and an
 //   "empty" one that all 256 consumer threads arrive at when done.  TMA
 //   reads the BSHD tensors in place through maps built per call, zero-fills
 //   rows past Sq or Sk, and swizzles each box as wgmma reads it: rows of
 //   128 bytes (boxes of 64 elements) where 64 divides D, else of 32 bytes
 //   (16 elements, one k16 step), so one kernel template serves every D that
-//   is a multiple of 16 up to 128.
+//   is a multiple of 16 up to 128, and 224.
 // - Warpgroups 1 and 2 are consumers, 64 q rows each, raised to 240
-//   registers.  S = Q K^T is wgmma m64n128k16 with Q and K from shared
+//   registers.  S = Q K^T is wgmma m64nBKk16 with Q and K from shared
 //   memory (K-major), D / 16 steps, float32 accumulators.  S is scaled by
-//   log2(e)/sqrt(D) in float32 after the product and masked where the tile
+//   log2(e) * scale in float32 after the product and masked where the tile
 //   straddles an edge of the consumer's rows; the online softmax runs in
 //   the accumulator's registers (a row lives in a quad of lanes: two
 //   shuffles).  P is rounded to bf16 once, in the accumulator's own layout,
-//   which is the register A operand of O += P V (wgmma m64nDk16, eight k16
-//   steps), and the row sum adds those rounded weights.  V is read from
+//   which is the register A operand of O += P V (wgmma m64nDk16, BK / 16
+//   k16 steps), and the row sum adds those rounded weights.  V is read from
 //   shared memory as an N-major ("transposed") B operand, as it is stored.
 // - The two consumers take turns on the tensor cores (named barriers 1 and
 //   2): each issues its S product only after the other has issued its own,
 //   so one's softmax overlaps the other's products.
 // - The output is rounded to bf16 into the consumer's own q rows, swizzled
 //   as TMA's, and written by a TMA store, which drops rows past Sq.
-// Shared memory at D = 128 is 160 KB: q 32 KB and two stages of k and v.
+// Shared memory at D = 128 is 160 KB: q 32 KB and two stages of k and v;
+// at D = 224, 168 KB: q 56 KB and two stages of 64-row k and v (28 KB).
 //
 // float32 -- fa_fwd_kernel, on the CUDA cores (TF32 would break the 3e-5
 // contract).  One block of 128 threads per (q tile of 64 rows, head,
@@ -268,26 +275,29 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ----------------------------------------------------------- bfloat16
 
 constexpr int kWgBQ = 128;       // q rows per block, 64 per consumer
-constexpr int kWgBK = 128;       // k rows per tile
 constexpr int kWgThreads = 384;  // the producer warpgroup and two consumers
 constexpr int kStages = 2;       // k/v tiles in flight
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // setmaxnreg
 
 template <int D>
 struct Wg {
-  // A tile (128 rows of D bf16) lies in shared memory as D / kBox boxes of
-  // 128 rows x kBox elements, each row kRow bytes, swizzled by TMA: 128-byte
+  // A tile (rows of D bf16) lies in shared memory as D / kBox boxes of its
+  // rows x kBox elements, each row kRow bytes, swizzled by TMA: 128-byte
   // rows where 64 divides D, else 32-byte rows (16 elements: one k16 step).
+  // A q tile has 128 rows, a k or v tile kBK.
   static constexpr int kBox = D % 64 == 0 ? 64 : 16;
   static constexpr int kRow = 2 * kBox;
   static constexpr int kLayout = kBox == 64 ? 1 : 3;  // descriptor swizzle
   static constexpr int kSwizzleMask = kBox == 64 ? 0x70 : 0x10;
   static constexpr int kBoxes = D / kBox;
-  static constexpr int kBoxBytes = 128 * kRow;
+  static constexpr int kBK = D > 128 ? 64 : 128;  // k rows per tile
+  static constexpr int kQBoxBytes = kWgBQ * kRow;
+  static constexpr int kQTile = kBoxes * kQBoxBytes;
+  static constexpr int kBoxBytes = kBK * kRow;
   static constexpr int kTile = kBoxes * kBoxBytes;
   // q tile, kStages k tiles, kStages v tiles, then the barriers: q full,
   // k full and v full per stage, empty per stage
-  static constexpr int kK = kTile;
+  static constexpr int kK = kQTile;
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kBar = kV + kStages * kTile;
   static constexpr size_t kSmem = kBar + 8 * (1 + 3 * kStages) + 1024;
@@ -300,6 +310,16 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// S (+)= Q K^T for one k16 step: m64n128k16, or m64n64k16 for 64-row tiles
+template <int BK>
+__device__ __forceinline__ void wgmma_scores(float (&s)[BK / 2], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  if constexpr (BK == 128)
+    wlk::wgmma_m64n128k16_ss(s, a, b, scale_d);
+  else
+    wlk::wgmma_m64n64k16_ss(s, a, b, scale_d);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
@@ -308,6 +328,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
                 const __grid_constant__ CUtensorMap om, int rep, int sq,
                 int sk, int causal, int window, float scale_log2) {
   using W = Wg<D>;
+  constexpr int kWgBK = W::kBK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (wlk::smem_addr(smem_raw) & 1023)) & 1023);
@@ -327,12 +348,12 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
 
   // The k tiles that run, kt_lo <= kt < kt_hi: the TPU kernel's two
   // block-skip tests for this 128-row q tile (kernels/flash_attention.py,
-  // k_tile_range).
+  // k_tile_range) over tiles of kWgBK keys.
   const int nk = (sk + kWgBK - 1) / kWgBK;
   int kt_lo = 0, kt_hi = nk;
   if (causal) kt_hi = min(nk, (q0 + kWgBQ - 1) / kWgBK + 1);
   if (window) {
-    const int lo = q0 - window - (kWgBK - 1);  // tile kt runs iff kt*128 > lo
+    const int lo = q0 - window - (kWgBK - 1);  // tile kt runs iff kt*BK > lo
     kt_lo = lo < 0 ? 0 : lo / kWgBK + 1;
   }
   const int n = max(kt_hi - kt_lo, 0);
@@ -352,9 +373,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
     // ------------------------------------------------ producer warpgroup
     wlk::setmaxnreg_dec<kProducerRegs>();
     if (tid == 0) {
-      wlk::mbar_arrive_expect_tx(q_full, W::kTile);
+      wlk::mbar_arrive_expect_tx(q_full, W::kQTile);
       for (int c = 0; c < W::kBoxes; ++c)
-        wlk::tma_load_4d(smem + c * W::kBoxBytes, &qm, q_full, c * W::kBox,
+        wlk::tma_load_4d(smem + c * W::kQBoxBytes, &qm, q_full, c * W::kBox,
                          q0, h, b);
       for (int i = 0; i < n; ++i) {
         const int s = i % kStages, ph = (i / kStages) & 1;
@@ -379,7 +400,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
     const int wi = (tid / 32) % 4, lane = tid % 32, g = lane / 4, t = lane % 4;
     const int qlo = q0 + 64 * w;
     const int row0 = qlo + 16 * wi + g;  // this thread's rows: row0, row0 + 8
-    unsigned char* q_s = smem + 64 * w * W::kRow;  // + c * kBoxBytes: box c
+    unsigned char* q_s = smem + 64 * w * W::kRow;  // + c * kQBoxBytes: box c
 
     float o[D / 2];
 #pragma unroll
@@ -403,19 +424,21 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       const unsigned char* k_s = smem + W::kK + st * W::kTile;
       const unsigned char* v_s = smem + W::kV + st * W::kTile;
 
-      // S = Q K^T: 64 x 128, float32, D / 16 k16 steps; the first step
+      // S = Q K^T: 64 x BK, float32, D / 16 k16 steps; the first step
       // ignores s's (undefined) contents
-      float s[64];
+      float s[kWgBK / 2];
       wlk::mbar_wait(&k_full[st], ph);
       wlk::named_sync(1 + w, 256);
       wlk::fence_regs(s);
       wlk::wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
-        const int off = (ks * 32 / W::kRow) * W::kBoxBytes + ks * 32 % W::kRow;
-        wlk::wgmma_m64n128k16_ss(
-            s, wlk::wgmma_desc(q_s + off, 16, 8 * W::kRow, W::kLayout),
-            wlk::wgmma_desc(k_s + off, 16, 8 * W::kRow, W::kLayout), ks > 0);
+        const int box = ks * 32 / W::kRow, in_row = ks * 32 % W::kRow;
+        wgmma_scores<kWgBK>(
+            s, wlk::wgmma_desc(q_s + box * W::kQBoxBytes + in_row, 16,
+                               8 * W::kRow, W::kLayout),
+            wlk::wgmma_desc(k_s + box * W::kBoxBytes + in_row, 16,
+                            8 * W::kRow, W::kLayout), ks > 0);
       }
       wlk::wgmma_commit();
       if (w == 0 || i + 1 < n) wlk::named_arrive(2 - w, 256);
@@ -436,7 +459,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
           hi[r] = (causal ? min(qpos + 1, sk) : sk) - (k0 + 2 * t);
         }
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < kWgBK / 8; ++j)
 #pragma unroll
           for (int x = 0; x < 4; ++x) {
             const int r = x / 2, c = 8 * j + x % 2;
@@ -448,13 +471,13 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       // online softmax; a row lives in the quad of lanes 4g .. 4g + 3.  P
       // is rounded to bf16 in pairs, already the A operand of P V, and the
       // row sum adds the rounded weights.
-      uint32_t p[16][2];
+      uint32_t p[kWgBK / 8][2];
       float corr[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float mx = kNegInf;
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < kWgBK / 8; ++j)
           mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -463,7 +486,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
         m[r] = m_new;
         float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kWgBK / 8; ++j) {
           const float x0 = s[4 * j + 2 * r], x1 = s[4 * j + 2 * r + 1];
           const uint32_t pk =
               kMask ? wlk::pack_bf16x2(ex2(x0 - m_new), ex2(x1 - m_new))
@@ -482,7 +505,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
         o[4 * j + 3] *= corr[1];
       }
 
-      // O += P V: V (128 keys x D) read N-major, as stored; the k16 step kk
+      // O += P V: V (BK keys x D) read N-major, as stored; the k16 step kk
       // takes P's column blocks 2kk and 2kk + 1
       wlk::mbar_wait(&v_full[st], ph);
       wlk::fence_regs(o);
@@ -525,7 +548,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * t;
-      unsigned char* box = q_s + (col / W::kBox) * W::kBoxBytes;
+      unsigned char* box = q_s + (col / W::kBox) * W::kQBoxBytes;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         int off = (16 * wi + g + 8 * r) * W::kRow + (col % W::kBox) * 2;
@@ -538,7 +561,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
     wlk::named_sync(3 + w, 128);
     if (tid % 128 == 0 && qlo < sq) {
       for (int c = 0; c < W::kBoxes; ++c)
-        wlk::tma_store_4d(&om, q_s + c * W::kBoxBytes, c * W::kBox, qlo, h, b);
+        wlk::tma_store_4d(&om, q_s + c * W::kQBoxBytes, c * W::kBox, qlo, h, b);
       wlk::tma_store_wait();
     }
   }
@@ -550,7 +573,7 @@ template <int ND>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        const Strides* st, long long B, long long H,
                        long long KV, long long sq, long long sk, int causal,
-                       long long window, cudaStream_t stream) {
+                       long long window, double scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<ND>();
   auto kernel = fa_fwd_kernel<ND>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -561,7 +584,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1],
       st[2], st[3], (int)(H / KV), sq, sk, causal, window,
-      1.0f / sqrtf((float)(ND * 16)));
+      scale > 0 ? (float)scale : 1.0f / sqrtf((float)(ND * 16)));
   return cudaGetLastError();
 }
 
@@ -594,7 +617,7 @@ template <int ND>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         const Strides* st, long long B, long long H,
                         long long KV, long long sq, long long sk, int causal,
-                        long long window, cudaStream_t stream) {
+                        long long window, double scale, cudaStream_t stream) {
   constexpr int D = ND * 16;
   constexpr size_t smem = Wg<D>::kSmem;
   auto kernel = fa_wgmma_kernel<D>;
@@ -616,8 +639,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (window >= sq) window = 0;  // no query sees past it: no window
   CUtensorMap qm, km, vm, om;
   if (!make_map<D>(&qm, q, st[0], B, sq, H, kWgBQ) ||
-      !make_map<D>(&km, k, st[1], B, sk, KV, kWgBK) ||
-      !make_map<D>(&vm, v, st[2], B, sk, KV, kWgBK) ||
+      !make_map<D>(&km, k, st[1], B, sk, KV, Wg<D>::kBK) ||
+      !make_map<D>(&vm, v, st[2], B, sk, KV, Wg<D>::kBK) ||
       !make_map<D>(&om, o, st[3], B, sq, H, 64))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -626,14 +649,14 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   dim3 grid((unsigned)((sq + kWgBQ - 1) / kWgBQ * H), 1, (unsigned)B);
   kernel<<<grid, kWgThreads, smem, stream>>>(
       qm, km, vm, om, (int)(H / KV), (int)sq, (int)sk, causal, (int)window,
-      kLog2e / sqrtf((float)D));
+      scale > 0 ? (float)(1.4426950408889634 * scale) : kLog2e / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 using Launcher = cudaError_t (*)(const void*, const void*, const void*, void*,
                                  const Strides*, long long, long long,
                                  long long, long long, long long, int,
-                                 long long, cudaStream_t);
+                                 long long, double, cudaStream_t);
 
 Launcher by_head_dim(long long D, int dtype) {
   static const Launcher f32[] = {launch_f32<1>, launch_f32<2>, launch_f32<3>,
@@ -642,6 +665,7 @@ Launcher by_head_dim(long long D, int dtype) {
   static const Launcher bf16[] = {launch_bf16<1>, launch_bf16<2>, launch_bf16<3>,
                                   launch_bf16<4>, launch_bf16<5>, launch_bf16<6>,
                                   launch_bf16<7>, launch_bf16<8>};
+  if (dtype == 1 && D == 224) return launch_bf16<14>;
   if (D % 16 || D < 16 || D > 128) return nullptr;
   return (dtype == 0 ? f32 : bf16)[D / 16 - 1];
 }
@@ -654,12 +678,15 @@ extern "C" {
 // element strides, (B, S, H) of q, k, v, o in that order, unit stride along
 // D.  dtype 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; every
 // pointer and every (B, S, H) stride in bytes a multiple of 16, as TMA
-// needs).  D a multiple of 16 up to 128; H a multiple of KV; all
-// extents > 0.
+// needs).  D a multiple of 16 up to 128, or 224 in bfloat16; H a multiple
+// of KV; all extents > 0.  scale multiplies the scores; 0 (or less) takes
+// 1/sqrt(D).  It comes last, so a caller that passes it can call a build
+// that does not take it (the default scale then).
 int wlk_flash_attention(const void* q, const void* k, const void* v, void* o,
                         const long long* strides, long long B, long long H,
                         long long KV, long long Sq, long long Sk, long long D,
-                        int dtype, int causal, long long window, void* stream) {
+                        int dtype, int causal, long long window, void* stream,
+                        double scale) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || KV < 1 || Sq < 1 || Sk < 1 || H % KV != 0 ||
       B > 65535 || H > 65535 || (Sq + kBQ - 1) / kBQ > 0x7fffffffLL)
@@ -676,7 +703,7 @@ int wlk_flash_attention(const void* q, const void* k, const void* v, void* o,
   }
   Launcher fn = by_head_dim(D, dtype);
   if (!fn) return cudaErrorInvalidValue;
-  return fn(q, k, v, o, st, B, H, KV, Sq, Sk, causal, window, s);
+  return fn(q, k, v, o, st, B, H, KV, Sq, Sk, causal, window, scale, s);
 }
 
 }  // extern "C"

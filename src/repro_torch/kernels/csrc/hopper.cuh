@@ -258,6 +258,23 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d (+)= a b, m64n64k16: A (64 x 16) and B (64 x 16) K-major in shared
+// memory; scale_d = 0 ignores d's previous contents.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WLK_F8(d, 0), WLK_F8(d, 8),
+        WLK_F8(d, 16), WLK_F8(d, 24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d += a b, m64nNk16: A (64 x 16) in registers (the mma.m16n8k16 A
 // fragment of each warp's 16 rows), B (16 x N) N-major ("transposed") in
 // shared memory.
@@ -407,6 +424,38 @@ __device__ __forceinline__ void wgmma_m64k16_rs<128>(float (&d)[64],
         WLK_F8(d, 16), WLK_F8(d, 24),
         WLK_F8(d, 32), WLK_F8(d, 40),
         WLK_F8(d, 48), WLK_F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64k16_rs<224>(float (&d)[112],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111"
+      "}, {%112, %113, %114, %115}, %116, p, 1, 1, 1;\n}\n"
+      : WLK_F8(d, 0), WLK_F8(d, 8),
+        WLK_F8(d, 16), WLK_F8(d, 24),
+        WLK_F8(d, 32), WLK_F8(d, 40),
+        WLK_F8(d, 48), WLK_F8(d, 56),
+        WLK_F8(d, 64), WLK_F8(d, 72),
+        WLK_F8(d, 80), WLK_F8(d, 88),
+        WLK_F8(d, 96), WLK_F8(d, 104)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

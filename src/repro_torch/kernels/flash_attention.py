@@ -9,25 +9,31 @@ directly, so no transpose or padded copy is made; a bfloat16 tensor whose
 pointer or strides are not whole 16-byte chunks (TMA's rule), or that
 repeats itself along a dimension with stride 0, is first made contiguous.
 ``k_tile_range`` states in Python which k tiles a q tile runs, the skip
-test both kernels implement.  ``kernels.ops`` holds the public wrapper
+test both kernels implement, and ``bf16_tiles`` the bfloat16 kernel's
+tiles at a head dim.  ``scale`` multiplies the scores (``None``: 1/sqrt(D),
+computed in the kernel as it always was).  ``kernels.ops`` holds the public wrapper
 that dispatches on the tensor's device.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Tuple
+import math
+from typing import Any, Optional, Tuple
 
 import torch
 
 from . import build as _build
 
-__all__ = ["NAME", "BF16_TILES", "F32_TILES", "check_args", "k_tile_range",
+__all__ = ["NAME", "BF16_TILES", "BF16_WIDE_TILES", "BF16_WIDE_DIMS",
+           "F32_TILES", "bf16_tiles", "check_args", "k_tile_range",
            "flash_attention"]
 
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BF16_TILES = (128, 128)  # (q rows, k rows) of a tile: fa_wgmma_kernel
+BF16_TILES = (128, 128)  # (q rows, k rows) of a tile: fa_wgmma_kernel, D <= 128
+BF16_WIDE_TILES = (128, 64)  # fa_wgmma_kernel at a head dim in BF16_WIDE_DIMS
+BF16_WIDE_DIMS = (224,)  # head dims above 128 the bfloat16 kernel serves
 F32_TILES = (64, 64)     # fa_fwd_kernel
 _lib: Any = None
 
@@ -38,18 +44,28 @@ def _library() -> Any:
         lib = _build.load(NAME)
         lib.wlk_flash_attention.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 6
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+               ctypes.c_double])
         lib.wlk_flash_attention.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def bf16_tiles(d: int) -> tuple:
+    """(q rows, k rows) of the bfloat16 kernel's tiles at head dim ``d``:
+    k tiles of 64 rows above D = 128, where two stages of 128-row k and v
+    tiles beside the q tile would outgrow shared memory."""
+    return BF16_WIDE_TILES if d > 128 else BF16_TILES
+
+
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               window: int) -> None:
+               window: int, scale: Optional[float] = None) -> None:
     """Raise on a call the kernel does not serve: q (B, Sq, H, D) and k/v
     (B, Sk, KV, D) of one dtype (float32 or bfloat16) on one device, H a
-    multiple of KV, D a multiple of 16 up to 128, no input that requires a
-    gradient (``ops.flash_attention`` detaches them for the kernel)."""
+    multiple of KV, D a multiple of 16 up to 128 (and, in bfloat16 only, a
+    head dim of ``BF16_WIDE_DIMS``), ``scale`` None or a finite positive
+    number, no input that requires a gradient (``ops.flash_attention``
+    detaches them for the kernel)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be a 4-D tensor "
@@ -65,12 +81,18 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h % k.shape[2]:
         raise ValueError(f"flash_attention: {h} query heads are not a multiple "
                          f"of {k.shape[2]} kv heads")
-    if d % 16 or not 16 <= d <= 128:
-        raise ValueError(f"flash_attention: head dim {d} is not a multiple of "
-                         f"16 in [16, 128]")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}; float32 or bfloat16, all the same")
+    wide = q.dtype == torch.bfloat16 and d in BF16_WIDE_DIMS
+    if not wide and (d % 16 or not 16 <= d <= 128):
+        more = (f" or one of {BF16_WIDE_DIMS}" if q.dtype == torch.bfloat16
+                else f" (bfloat16 also serves {BF16_WIDE_DIMS})")
+        raise ValueError(f"flash_attention: head dim {d} is not a multiple of "
+                         f"16 in [16, 128]{more}")
+    if scale is not None and not (math.isfinite(scale) and scale > 0):
+        raise ValueError(f"flash_attention: scale {scale} is not a finite "
+                         f"positive number")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k and v lie on different devices")
     if window < 0:
@@ -108,7 +130,8 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool, window: int) -> torch.Tensor:
+                    causal: bool, window: int, scale: Optional[float] = None
+                    ) -> torch.Tensor:
     """K3 on the card for arguments ``check_args`` accepted: (B, Sq, H, D)
     out in q's dtype, a new contiguous tensor."""
     if not q.is_cuda:
@@ -128,7 +151,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  strides, b, h, kv, sq, sk, d, _DTYPES[q.dtype], int(causal),
-                 int(window), stream)
+                 int(window), stream, 0.0 if scale is None else float(scale))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {err}")

@@ -64,12 +64,14 @@ def pack_cols(src: torch.Tensor, tile_offsets, tile_cols: int = 8) -> torch.Tens
 
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool, window: int) -> torch.Tensor:
-    _fa.check_args(q, k, v, window)
+                   causal: bool, window: int, scale: Optional[float]
+                   ) -> torch.Tensor:
+    _fa.check_args(q, k, v, window, scale)
     if q.is_cuda:
-        return _fa.flash_attention(q, k, v, causal, window)
+        return _fa.flash_attention(q, k, v, causal, window, scale)
     _plain_device(q, "flash_attention")
-    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -77,35 +79,39 @@ class _FlashAttention(torch.autograd.Function):
     (the reference's ``_flash_fwd``/``_flash_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, block_q, block_k):
+    def forward(ctx, q, k, v, causal, window, block_q, block_k, scale):
         ctx.save_for_backward(q, k, v)
-        ctx.args = (causal, window, block_q, block_k)
+        ctx.args = (causal, window, block_q, block_k, scale)
         return _flash_forward(q.detach(), k.detach(), v.detach(), causal,
-                              window)
+                              window, scale)
 
     @staticmethod
     def backward(ctx, g):
         from ..models.layers import blockwise_attention
 
-        causal, window, block_q, block_k = ctx.args
+        causal, window, block_q, block_k, scale = ctx.args
         ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
             out = blockwise_attention(*ins, causal=causal, window=window,
-                                      q_chunk=block_q, k_chunk=block_k)
+                                      q_chunk=block_q, k_chunk=block_k,
+                                      scale=scale)
             dq, dk, dv = torch.autograd.grad(out, ins, g)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0, block_q: int = 256,
-                    block_k: int = 512) -> torch.Tensor:
+                    block_k: int = 512, scale: Optional[float] = None
+                    ) -> torch.Tensor:
     """GQA attention: q (B,S,H,D); k/v (B,S,KV,D) -> (B,S,H,D) in q's
-    dtype.  The counterpart of the reference's ``ops.flash_attention``,
+    dtype, the scores scaled by ``scale`` (``None``: 1/sqrt(D)).  The
+    counterpart of the reference's ``ops.flash_attention``,
     differentiable: ``block_q``/``block_k`` (the TPU kernel's VMEM tiles,
     not used by the forward) are the backward's recompute chunks."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window, block_q, block_k)
-    return _flash_forward(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window, block_q, block_k,
+                                     scale)
+    return _flash_forward(q, k, v, causal, window, scale)
 
 
 def ssd_intra_chunk(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,

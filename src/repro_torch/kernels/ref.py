@@ -42,18 +42,21 @@ def pack_cols_ref(src: torch.Tensor, tile_offsets: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0,
-                        q_offset: int = 0) -> torch.Tensor:
+                        q_offset: int = 0, scale: Optional[float] = None
+                        ) -> torch.Tensor:
     """Scaled-dot-product attention with GQA broadcast, in float32 with the
     finite ``-1e30`` mask, rounded to ``q.dtype`` once.
 
     q (B, Sq, H, D); k/v (B, Sk, KV, D) with H = KV * rep; query i has
     position ``q_offset + i`` and key j position j.  Head h reads kv head
-    h // rep.  The same function as the reference's ``_sdpa``
-    (models/layers.py)."""
+    h // rep.  q is scaled by ``scale`` in float32 before the product (by
+    default divided by sqrt(D)).  The same function as the reference's
+    ``_sdpa`` (models/layers.py)."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     rep = h // kv
-    qg = (q.float() / math.sqrt(d)).reshape(b, sq, kv, rep, d)
+    qs = q.float() / math.sqrt(d) if scale is None else q.float() * scale
+    qg = qs.reshape(b, sq, kv, rep, d)
     scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k.float())
     qpos = torch.arange(sq, device=q.device) + q_offset
     kpos = torch.arange(sk, device=q.device)
@@ -71,15 +74,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = True,
                               window: int = 0,
-                              tiles: Optional[Tuple[int, int]] = None
-                              ) -> torch.Tensor:
+                              tiles: Optional[Tuple[int, int]] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
     """K3 in its CUDA kernels' order, at their tile sizes: the plain twin
     of ``flash_attention_ref`` that the kernels are held to tile by tile.
 
-    ``tiles`` = (q rows, k rows), by default the kernel's for q's dtype
-    (``flash_attention.BF16_TILES`` or ``F32_TILES``).  Per q tile, the k
-    tiles ``flash_attention.k_tile_range`` runs, keys past Sk read as zeros:
-    scores in float32 scaled by 1/sqrt(D) after the product, masked to the
+    ``tiles`` = (q rows, k rows), by default the kernel's for q's dtype and
+    head dim (``flash_attention.bf16_tiles(D)`` or ``F32_TILES``).  Per q
+    tile, the k tiles ``flash_attention.k_tile_range`` runs, keys past Sk
+    read as zeros: scores in float32 scaled by ``scale`` (by default
+    1/sqrt(D)) after the product, masked to the
     finite -1e30, an online softmax (running max, the correction of the
     earlier sum and accumulator), in bfloat16 the weights rounded to bf16
     once with the row sum adding the rounded weights, the division by
@@ -89,7 +93,7 @@ def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor,
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     rep = h // kv
-    bq, bk = tiles or (fa.BF16_TILES if q.dtype == torch.bfloat16
+    bq, bk = tiles or (fa.bf16_tiles(d) if q.dtype == torch.bfloat16
                        else fa.F32_TILES)
     nk = -(-sk // bk)
     qf = q.float().transpose(1, 2)                              # (b, h, sq, d)
@@ -109,7 +113,8 @@ def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor,
         lo, hi = fa.k_tile_range(q0, bq, bk, sk, causal, window)
         for kt in range(lo, hi):
             ks = slice(kt * bk, (kt + 1) * bk)
-            s = qt @ kf[:, :, ks].transpose(-1, -2) / math.sqrt(d)
+            s = qt @ kf[:, :, ks].transpose(-1, -2)
+            s = s / math.sqrt(d) if scale is None else s * scale
             kpos = torch.arange(ks.start, ks.stop, device=q.device)[None, :]
             mask = kpos < sk
             if causal:

@@ -1,6 +1,6 @@
 """Unified model configuration covering all assigned architecture families.
 
-Families: dense | moe | ssm | hybrid | encdec (audio) | vlm.
+Families: dense | moe | ssm | hybrid | zamba2 | encdec (audio) | vlm.
 One ``ModelConfig`` describes any of them; family-specific fields are zero /
 unused otherwise.  ``configs/<arch>.py`` instantiates the exact assigned
 configs; every config also provides a ``reduced()`` variant for CPU smoke
@@ -19,7 +19,7 @@ __all__ = ["ModelConfig"]
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | ssm | hybrid | encdec | vlm
+    family: str                     # dense | moe | ssm | hybrid | zamba2 | encdec | vlm
     n_layers: int
     d_model: int
     vocab: int
@@ -44,6 +44,11 @@ class ModelConfig:
 
     # --- hybrid (zamba2) ------------------------------------------------------
     attn_every: int = 0             # apply the shared attention block every k layers
+
+    # --- zamba2, the published form ----------------------------------------------
+    hybrid_layers: Tuple[int, ...] = ()  # layers that call a shared block first
+    shared_blocks: int = 0          # num_mem_blocks: shared blocks, called in turn
+    adapter_rank: int = 0           # rank of each call's MLP adapter
 
     # --- encoder-decoder (whisper) -------------------------------------------
     enc_layers: int = 0
@@ -120,6 +125,15 @@ class ModelConfig:
             per_layer = self._mamba_block_params() + d
             # one shared attention+MLP block (weights shared across uses)
             emb += attn + ffn + 2 * d
+        elif self.family == "zamba2":
+            per_layer = self._mamba_block_params() + d
+            # shared blocks over [h, x0] (2d wide): q/k/v 2d -> H hd, o H hd
+            # -> d, a GeGLU MLP; per call an adapter and a d x d linear
+            block = (3 * 2 * d * self.n_heads * hd + self.n_heads * hd * d
+                     + 3 * d * self.d_ff + 3 * d)
+            call = self.adapter_rank * (d + 2 * self.d_ff) + d * d
+            emb += (self.shared_blocks * block + len(self.hybrid_layers) * call
+                    + d)
         elif self.family == "encdec":
             dec = attn + d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
                 + self.n_heads * hd * d + ffn + 3 * d  # self + cross + mlp

@@ -160,6 +160,16 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
     return out
 
 
+def rmsnorm_grouped(scale: torch.Tensor, x: torch.Tensor, groups: int,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over each of ``groups`` equal slices of the last dimension,
+    then the one scale over all of it: the gated norm of a Mamba-2 mixer
+    with B/C groups (Zamba2RMSNormGated's ``group_size`` d / groups)."""
+    xf = x.float().unflatten(-1, (groups, -1))
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)).flatten(-2) * scale).to(x.dtype)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, d: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -206,12 +216,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0,
                         q_chunk: int = 1024, k_chunk: int = 1024,
-                        q_offset: int = 0) -> torch.Tensor:
+                        q_offset: int = 0, scale: Optional[float] = None
+                        ) -> torch.Tensor:
     """Flash attention in plain torch: an online softmax over key chunks
     for each query chunk, O(S * chunk) memory (layers.py:93-147).
 
     q (B, Sq, H, D); k/v (B, Sk, KV, D); query i has position ``q_offset +
-    i`` and key j position j.  Float32 inside, rounded to q's dtype once.  A key chunk that the
+    i`` and key j position j; the scores are scaled by ``scale`` (by
+    default 1/sqrt(D)).  Float32 inside, rounded to q's dtype once.  A key chunk that the
     causal or window mask hides from every row of a query chunk is skipped:
     the reference visits it, and it changes nothing there (its
     probabilities are exactly 0 once a row has seen a key, and a row's
@@ -220,7 +232,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     rep = h // kv
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qf = (q.float() * scale).reshape(b, sq, kv, rep, d)
     kf, vf = k.float(), v.float()
     outs = []
@@ -266,21 +278,28 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
-           causal: bool = True, window: int = 0, q_offset: int = 0
-           ) -> torch.Tensor:
+           causal: bool = True, window: int = 0, q_offset: int = 0,
+           scale: Optional[float] = None) -> torch.Tensor:
     """Dispatch by size (layers.py:150-159): K3 under ``cfg.use_flash``
     (causal, S > 1), ``blockwise_attention`` beyond two ``attn_chunk``s,
     else the plain attention.  ``q_offset``: the position of the first
-    query (a rank's slice of the queries, ``attention_layout``)."""
+    query (a rank's slice of the queries, ``attention_layout``); ``scale``:
+    the scores' (``None``: 1/sqrt(D)).  K3's backward recomputes the
+    attention in chunks of ``attn_chunk`` queries and keys: fewer, larger
+    chunks than ``kernels.ops``' 256 by 512 launch fewer operations (a
+    seventh as many chunk pairs at 4096 tokens) for about the same memory."""
     s = k.shape[1]
     if cfg.use_flash and causal and s > 1:
-        return kops.flash_attention(q, k, v, causal=True, window=window)
+        return kops.flash_attention(q, k, v, causal=True, window=window,
+                                    block_q=cfg.attn_chunk,
+                                    block_k=cfg.attn_chunk, scale=scale)
     if s > 2 * cfg.attn_chunk:
         return blockwise_attention(q, k, v, causal=causal, window=window,
                                    q_chunk=cfg.attn_chunk,
-                                   k_chunk=cfg.attn_chunk, q_offset=q_offset)
+                                   k_chunk=cfg.attn_chunk, q_offset=q_offset,
+                                   scale=scale)
     return kref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset)
+                                    q_offset=q_offset, scale=scale)
 
 
 # The layouts of attention's local code (``parallel.sharding.local_apply``):

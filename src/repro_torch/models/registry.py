@@ -8,7 +8,8 @@ module, parameters uninitialised), ``init(cfg, generator, device)``,
 device)``, ``cache_specs(cfg)`` (the cache's logical axes, keyed as the
 cache), ``prefill(model, cfg, batch, cache)`` and ``decode_step(model,
 cfg, token, cache)``, so the trainer and the serving engine are
-family-agnostic.  The vlm and encdec families take their stub frontends'
+family-agnostic (the zamba2 family trains only: its serving functions
+raise).  The vlm and encdec families take their stub frontends'
 inputs through the batch: ``vision_embeds`` (B, V, d) and ``frames`` (B,
 S_src, d).
 """
@@ -18,7 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict
 
-from . import encdec, hybrid, ssm, transformer
+from . import encdec, hybrid, ssm, transformer, zamba2
 
 __all__ = ["Family", "get_family"]
 
@@ -64,6 +65,7 @@ _FAMILIES: Dict[str, Family] = {
         ("ssm", ssm, ssm.MambaLM, _ssm_prefill),
         ("hybrid", hybrid, hybrid.HybridLM, _hyb_prefill),
         ("encdec", encdec, encdec.EncDec, _enc_prefill),
+        ("zamba2", zamba2, zamba2.Zamba2LM, zamba2.prefill),
     )
 }
 

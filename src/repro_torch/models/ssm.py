@@ -252,7 +252,11 @@ class Mamba(nn.Module):
             + (("batch", split, None, None),),
             (("batch", None, split), ("batch", split, None, None)),
             summed=(0, 1, 2, 3, 4))
-        y = self.norm(y * F.silu(z))
+        y = y * F.silu(z)
+        # the gated norm, grouped as the B/C groups (published Mamba-2's
+        # RMSNormGated and Zamba2RMSNormGated: group size d_inner / G)
+        y = (self.norm(y) if g == 1 else
+             L.rmsnorm_grouped(self.norm.scale, y, g, self.norm.eps))
         out = constrain(y @ weight(self.out_proj, ("tensor", "fsdp")),
                         ("batch", "seq", "fsdp"))
         new_cache = None

@@ -233,6 +233,61 @@ def test_flash_attention_reads_fused_views_in_place(cuda):
                                    rtol=FA_TOL["bfloat16"][1])
 
 
+# K3 with a scale, at Zamba2's head dim 224 (its 64-key tiles) and below:
+# (B, Sq, Sk, H, KV, D, dtype, causal, window, scale); ZAMBA2_SCALE is
+# Zamba2's (D/2)^-1/2 at D = 224
+ZAMBA2_SCALE = (224 / 2) ** -0.5
+FA_SCALE_CASES = [
+    (1, 4096, 4096, 32, 32, 224, "bfloat16", True, 0, ZAMBA2_SCALE),  # the cell's
+    (1, 777, 777, 4, 2, 224, "bfloat16", True, 0, ZAMBA2_SCALE),  # ragged S
+    (2, 1000, 1000, 4, 4, 224, "bfloat16", True, 300, ZAMBA2_SCALE),  # window
+    (1, 129, 129, 8, 1, 224, "bfloat16", True, 64, None),   # default scale, MQA
+    (1, 100, 333, 4, 2, 224, "bfloat16", False, 0, ZAMBA2_SCALE),  # Sq != Sk
+    (1, 1000, 1000, 6, 2, 128, "bfloat16", True, 0, 0.2),   # 128-key tiles
+    (1, 130, 130, 4, 2, 32, "float32", True, 48, 0.3),      # CUDA cores
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dtype,causal,window,scale",
+                         FA_SCALE_CASES)
+def test_flash_attention_with_a_scale(cuda, b, sq, sk, h, kv, d, dtype, causal,
+                                      window, scale):
+    """K3 with the scores scaled by ``scale`` against the plain version and
+    its tile-by-tile twin, each given the same scale."""
+    g = torch.Generator(device=cuda).manual_seed(sq + d)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).to(dt)
+    k = torch.randn((b, sk, kv, d), generator=g, device=cuda).to(dt)
+    v = torch.randn((b, sk, kv, d), generator=g, device=cuda).to(dt)
+    before = build.launch_counts(["flash_attention"])["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    torch.cuda.synchronize()
+    assert build.launch_counts(["flash_attention"])["flash_attention"] == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    atol, rtol = FA_TOL[dtype]
+    for want in (ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                         scale=scale),
+                 ref.flash_attention_tiles_ref(q, k, v, causal=causal,
+                                               window=window, scale=scale)):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+
+def test_flash_attention_grads_with_zamba2s_scale(cuda):
+    """The autograd Function at D = 224 with Zamba2's scale: the kernel's
+    forward, the plain blockwise backward given the same scale."""
+    g = torch.Generator(device=cuda).manual_seed(224)
+    a = [torch.randn((1, 600, 4, 224), generator=g, device=cuda).bfloat16()
+         .requires_grad_() for _ in range(3)]
+    r = [t.detach().float().requires_grad_() for t in a]
+    out = ops.flash_attention(*a, causal=True, scale=ZAMBA2_SCALE)
+    got = torch.autograd.grad((out.float() ** 2).sum(), a)
+    want = torch.autograd.grad((ref.flash_attention_ref(
+        *r, causal=True, scale=ZAMBA2_SCALE) ** 2).sum(), r)
+    for x, y in zip(got, want):
+        assert (x.float() - y).norm() <= 2e-2 * y.norm()
+
+
 # K4 cases: (B, S, H, P, G, N, chunk)
 SSD_CASES = [
     (1, 2048, 80, 64, 1, 128, 256),   # the serving path's shape
